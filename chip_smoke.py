@@ -1,0 +1,460 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
+and PyTorch built for CUDA.  It imports nothing of JAX or of the JAX
+package ``repro``.  Phases, each of which fails the run (non-zero exit) if
+anything in it fails:
+
+1. the card: ``nvidia-smi`` name and power limit;
+2. build every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for sm_90a;
+3. each CUDA kernel against its plain PyTorch version on the card, on
+   seeded inputs (several plans, both activation forms, ragged M/N/K, and
+   the main path's shapes), bit-exact (max abs diff 0); then each kernel
+   timed with CUDA events at the main path's decode (M=4) and prefill
+   (M=64) shapes, beside its plain version, its bound and a library call;
+4. the main path: qwen1.5-110b at full width (depth cut to 4 layers,
+   random seeded weights on the card) served greedily by the fixed-slot
+   ``Engine`` in native, int4_packed, dsp_tuned (plan
+   a4w4-p10-n32-mr+full-c2) and dsp_packed; the kernels' launch counters
+   are zeroed just before and read just after, and every kernel must
+   have launched; logits must be finite;
+5. whole-path agreement at the smoke config: the kernel engine and the
+   plain-version engine emit identical greedy tokens in int4_packed,
+   dsp_tuned (mr plan) and dsp_packed.
+
+Output: progress lines, the card's name and power limit, one JSON line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+``--json PATH`` also writes the full timing and serving tables there.
+Without CUDA, or outside a checkout of the repository, it exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+MAIN_PLAN = "a4w4-p10-n32-mr+full-c2"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+# main-path linear shapes (K, N) at full width: wq/wo, wk/wv, up/gate,
+# down, lm_head; decode runs M = n_slots = 4 rows, prefill 4 x 16 = 64
+SHAPES = [(8192, 8192), (8192, 1024), (8192, 49152), (49152, 8192), (8192, 152064)]
+HEADLINE = (4, 8192, 49152)  # the JSON line's shape: the up/gate decode GEMV
+L2_BYTES = 50 * 2**20
+SLICE_N = 16384  # plain versions run in column slices to bound their memory
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---- timing and bounds -------------------------------------------------------
+
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    """Mean time of ``fn()`` over ``iters`` launches, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def by_columns(torch, fn, n: int):
+    """``fn(n0, n1)`` over column slices of at most SLICE_N, concatenated."""
+    return torch.cat([fn(n0, min(n0 + SLICE_N, n)) for n0 in range(0, n, SLICE_N)],
+                     dim=1)
+
+
+def max_diff(torch, got, want) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+
+
+# ---- phase 3: kernels against their plain versions --------------------------
+
+
+def check_kernels(torch, K, ref, checks: list) -> None:
+    """Bit-exactness of every kernel against its plain version on seeded
+    inputs: several plans, both activation forms, ragged M/N/K."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plans = [ref.INT4_EXACT, ref.INT4_NAIVE, ref.INT4_MR_OVERPACKED,
+             ref.spec_from_name(MAIN_PLAN), ref.spec_from_name("a4w4-p11-n16-full-c2"),
+             ref.spec_from_name("a8w8-p11-n1-full-c4")]
+    shapes = [(5, 200, 300), (17, 130, 129), (64, 1000, 515), (4, 8192, 1024)]
+    for spec in plans:
+        for m, k, n in shapes:
+            x_u = torch.randint(0, 1 << spec.bits_a, (m, k), generator=gen,
+                                device=dev, dtype=torch.int32)
+            lo = -(1 << (spec.bits_w - 1))
+            w_s = torch.randint(lo, -lo, (k, n), generator=gen, device=dev,
+                                dtype=torch.int32)
+            packed = ref.pack_weight_words(w_s, spec)
+            name = f"{spec.name()} M={m} K={k} N={n}"
+            got = K.packed_matmul_prepacked(x_u, packed.words, packed.wsc, spec)
+            want = K.packed_matmul_prepacked_plain(x_u, packed.words, packed.wsc, spec)
+            checks.append(("packed_matmul_prepacked", name + " int", max_diff(torch, got, want)))
+            xf = torch.randn((m, k), generator=gen, device=dev)
+            zp = 1 << (spec.bits_a - 1)
+            scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
+            got = K.packed_matmul_prepacked(xf, packed.words, packed.wsc, spec,
+                                            x_scale=scale, x_zp=zp)
+            want = K.packed_matmul_prepacked_plain(xf, packed.words, packed.wsc, spec,
+                                                   x_scale=scale, x_zp=zp)
+            checks.append(("packed_matmul_prepacked", name + " fused", max_diff(torch, got, want)))
+            got = K.packed_matmul(x_u, w_s.to(torch.int8), spec)
+            want = K.packed_matmul_plain(x_u, w_s.to(torch.int8), spec)
+            checks.append(("packed_matmul", name, max_diff(torch, got, want)))
+    for m, k, n in [(5, 202, 300), (17, 130, 130), (64, 1024, 515), (4, 8192, 1024)]:
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+        checks.append(("int4_matmul", f"M={m} K={k} N={n}",
+                       max_diff(torch, K.int4_matmul(x, w), K.int4_matmul_plain(x, w))))
+    torch.cuda.synchronize()
+
+
+def library_ms(torch, fn) -> float | None:
+    """Time of the yardstick library call, or None where PyTorch refuses
+    the shape (the refusal is printed)."""
+    try:
+        return cuda_ms(torch, fn, 20)
+    except RuntimeError as e:
+        log(f"library call refused: {str(e).splitlines()[0]}")
+        return None
+
+
+def _copies(make, nbytes: int) -> list:
+    """Enough independent weight copies that cycling them exceeds the L2
+    cache, so every timed launch reads its weights from HBM, as decode does."""
+    return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
+
+
+def time_kernels(torch, K, ref, checks: list) -> list[dict]:
+    """Each kernel at the main path's shapes: exactness against the plain
+    version, kernel / plain / library time, bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    main = ref.spec_from_name(MAIN_PLAN)
+    exact = ref.INT4_EXACT  # dsp_packed's default plan (LinearSpec.dsp_spec)
+    rows = []
+    for m in (4, 64):
+        for k, n in SHAPES:
+            xf = torch.randn((m, k), generator=gen, device=dev)
+            # int4_matmul: (M, K) int8 x (K/2, N) nibbles
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            ws = _copies(lambda: torch.randint(0, 256, (k // 2, n), generator=gen,
+                                               device=dev, dtype=torch.uint8), k * n // 2)
+            it = iter(range(10**9))
+            ms = cuda_ms(torch, lambda: K.int4_matmul(xq, ws[next(it) % len(ws)]), 20)
+            t0 = time.perf_counter()
+            want = by_columns(torch, lambda a, b: K.int4_matmul_plain(xq, ws[0][:, a:b]), n)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            checks.append(("int4_matmul", f"main M={m} K={k} N={n}",
+                           max_diff(torch, K.int4_matmul(xq, ws[0]), want)))
+            w8 = ref.unpack_int4_weights(ws[0])
+            xpad = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - m)))  # _int_mm: M > 16
+            lib_ms = library_ms(torch, lambda: torch._int_mm(xpad, w8))
+            del w8, want
+            b_ms, b_by = bound(m * k + k * n / 2 + 4 * m * n, 2 * m * k * n,
+                               INT8_TENSOR_OPS_PER_S)
+            rows.append(dict(kernel="int4_matmul", M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library="torch._int_mm on unpacked int8"
+                             + (" (M padded to 32)" if m < 32 else ""),
+                             bound_ms=b_ms, bound_by=b_by))
+            del ws
+            # packed_matmul_prepacked: the main plan, fused-quantize form
+            zp = 1 << (main.bits_a - 1)
+            scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
+
+            def make_packed():
+                w = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int32)
+                return ref.pack_weight_words(w, main)
+            pw = _copies(make_packed, 6 * k * n)
+            it = iter(range(10**9))
+            ms = cuda_ms(torch, lambda: K.packed_matmul_prepacked(
+                xf, *pw[next(it) % len(pw)], main, x_scale=scale, x_zp=zp), 10)
+            t0 = time.perf_counter()
+            want = by_columns(torch, lambda a, b: K.packed_matmul_prepacked_plain(
+                xf, pw[0].words[..., a:b], pw[0].wsc[..., a:b], main,
+                x_scale=scale, x_zp=zp), n)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = K.packed_matmul_prepacked(xf, *pw[0], main, x_scale=scale, x_zp=zp)
+            checks.append(("packed_matmul_prepacked", f"main {MAIN_PLAN} M={m} K={k} N={n}",
+                           max_diff(torch, got, want)))
+            del pw, want, got
+            # needed bytes: x, scale, words (2 B/weight), the even lane of
+            # wsc (2 B/weight; the odd lane is never read), out
+            macs = m * (k // 2) * n * main.n_columns * 2  # words + contamination
+            b_ms, b_by = bound(4 * m * k + 4 * m + 4 * k * n + 4 * m * n, 2 * macs,
+                               CUDA_CORE_OPS_PER_S)
+            rows.append(dict(kernel="packed_matmul_prepacked", plan=MAIN_PLAN, M=m, K=k,
+                             N=n, ms=ms, plain_ms=plain_ms, library_ms=None,
+                             library="none: the mr plan is not exact, no library "
+                             "call computes its arithmetic", bound_ms=b_ms, bound_by=b_by))
+            # packed_matmul: INT4_EXACT, unsigned ints x int8 weights
+            xu = torch.randint(0, 16, (m, k), generator=gen, device=dev, dtype=torch.int32)
+            w8s = _copies(lambda: torch.randint(-8, 8, (k, n), generator=gen, device=dev,
+                                                dtype=torch.int8), k * n)
+            it = iter(range(10**9))
+            ms = cuda_ms(torch, lambda: K.packed_matmul(xu, w8s[next(it) % len(w8s)], exact), 10)
+            t0 = time.perf_counter()
+            want = by_columns(torch, lambda a, b: K.packed_matmul_plain(
+                xu, w8s[0][:, a:b], exact), n)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            checks.append(("packed_matmul", f"main {exact.name()} M={m} K={k} N={n}",
+                           max_diff(torch, K.packed_matmul(xu, w8s[0], exact), want)))
+            xpad = torch.nn.functional.pad(xu.to(torch.int8), (0, 0, 0, max(0, 32 - m)))
+            lib_ms = library_ms(torch, lambda: torch._int_mm(xpad, w8s[0]))
+            del w8s, want
+            macs = m * (k // 2) * n * exact.n_columns
+            b_ms, b_by = bound(4 * m * k + k * n + 4 * m * n, 2 * macs, CUDA_CORE_OPS_PER_S)
+            rows.append(dict(kernel="packed_matmul", plan=exact.name(), M=m, K=k, N=n,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             library="torch._int_mm (the plan is exact)"
+                             + (" (M padded to 32)" if m < 32 else ""),
+                             bound_ms=b_ms, bound_by=b_by))
+            gc.collect()
+            torch.cuda.empty_cache()
+            for r in rows[-3:]:
+                log(f"time {r['kernel']:24s} M={m:3d} K={k:6d} N={n:6d}: "
+                    f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                    f"plain {r['plain_ms']:.2f} ms, library "
+                    f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')} ms)")
+    return rows
+
+
+# ---- phase 4 / 5: serving -----------------------------------------------------
+
+
+def serve_full_width(torch, K, P, card: str):
+    """The main path at full width, one engine per mode built and freed."""
+    cfg = P.dataclasses.replace(P.get_config("qwen1.5-110b"), n_layers=4)
+    params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 17, 30)]
+    plan = P.ref.spec_from_name(MAIN_PLAN)
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("native", "int4_packed", "dsp_tuned", "dsp_packed"):
+        before = {k: f.launches for k, f in K.WRAPPERS.items()}
+        t0 = time.perf_counter()
+        table = ({p: plan for p, _ in P.iter_packable_weights(params)}
+                 if mode == "dsp_tuned" else None)
+        engine = P.Engine(cfg, params, P.ServeConfig(
+            n_slots=4, max_len=64, prefill_chunk=16, max_new=8, quant_mode=mode,
+            eos_token=-1, device="cuda"), plan_table=table)  # no EOS: full budgets
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        warm = engine.generate([prompts[0][:4]], max_new=2)  # warm-up request
+        sch = engine.scheduler
+        tok0, time0 = sch.prefill_tokens, sch.prefill_time_s
+        rids = [engine.submit(p, max_new=8, admit=False) for p in prompts]
+        step_ms = []
+        while engine.active.any() or sch.n_queued:
+            t0 = time.perf_counter()
+            engine.step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits = torch.from_numpy(engine.peek_logits())
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"{mode}: non-finite logits")
+        lengths = [len(sch.requests[r].tokens) for r in rids]
+        if lengths != [8, 8, 8] or len(next(iter(warm.values()))) != 2:
+            raise RuntimeError(f"{mode}: expected 3 x 8 tokens, got {lengths}")
+        decode = sorted(step_ms[1:])  # the first step also admits (prefill)
+        results[mode] = dict(
+            build_s=build_s,
+            prefill_tok_s=(sch.prefill_tokens - tok0) / (sch.prefill_time_s - time0),
+            decode_ms_per_step=decode[len(decode) // 2],
+            launches={k: f.launches - before[k] for k, f in K.WRAPPERS.items()},
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        )
+        log(f"serve {mode:12s} on {card}: build {build_s:.1f} s, prefill "
+            f"{results[mode]['prefill_tok_s']:.1f} tok/s, decode "
+            f"{results[mode]['decode_ms_per_step']:.2f} ms/step (median), "
+            f"launches {results[mode]['launches']}, peak "
+            f"{results[mode]['peak_gb']:.1f} GB")
+        del engine, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", type=Path, default=None, metavar="PATH",
+                    help="also write the full timing and serving tables here")
+    json_path = ap.parse_args(argv).json
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    t_start = time.perf_counter()
+    import dataclasses
+    import types
+
+    from repro_torch.core.packed_params import iter_packable_weights
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serving import Engine, ServeConfig
+
+    P = types.SimpleNamespace(dataclasses=dataclasses, ref=ref, T=T, Engine=Engine,
+                              ServeConfig=ServeConfig, get_config=get_config,
+                              iter_packable_weights=iter_packable_weights)
+
+    class K:  # the kernels' wrappers and plain versions
+        int4_matmul, int4_matmul_plain = i4.int4_matmul, i4.int4_matmul_plain
+        packed_matmul, packed_matmul_plain = pm.packed_matmul, pm.packed_matmul_plain
+        packed_matmul_prepacked = pm.packed_matmul_prepacked
+        packed_matmul_prepacked_plain = pm.packed_matmul_prepacked_plain
+        WRAPPERS = {"int4_matmul": i4.int4_matmul, "packed_matmul": pm.packed_matmul,
+                    "packed_matmul_prepacked": pm.packed_matmul_prepacked}
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    # phase 1: the card
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    times = build.build_all(("-Xptxas", "-v"))
+    log(f"build: {time.perf_counter() - t0:.1f} s wall "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
+
+    # phase 3: kernels against their plain versions, then timed
+    checks: list = []
+    t0 = time.perf_counter()
+    check_kernels(torch, K, ref, checks)
+    rows = time_kernels(torch, K, ref, checks)
+    bad = [c for c in checks if c[2] != 0]
+    for c in bad:
+        log(f"MISMATCH {c[0]} {c[1]}: max abs diff {c[2]}")
+    if bad:
+        raise RuntimeError(f"{len(bad)} of {len(checks)} kernel checks disagree")
+    log(f"kernels: {len(checks)} checks bit-exact against the plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # phase 4: the main path at full width, launch counts zeroed just before
+    for f in K.WRAPPERS.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    serving_out = serve_full_width(torch, K, P, card)
+    launches = {k: f.launches for k, f in K.WRAPPERS.items()}
+    log(f"main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
+    need = {"int4_matmul": "int4_packed", "packed_matmul_prepacked": "dsp_tuned",
+            "packed_matmul": "dsp_packed"}
+    for kernel, mode in need.items():
+        if serving_out[mode]["launches"][kernel] < 1 or launches[kernel] < 1:
+            raise RuntimeError(f"{kernel} never launched on the main path ({mode})")
+
+    # phase 5: kernel engine vs plain-version engine at the smoke config
+    smoke = dataclasses.replace(get_config("qwen1.5-110b", smoke=True), dtype="float32")
+    sparams = T.init_params(smoke, seed=0, dtype=torch.float32, device="cuda")
+    plan = ref.spec_from_name(MAIN_PLAN)
+    prompts = [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
+    for mode in ("int4_packed", "dsp_tuned", "dsp_packed"):
+        table = ({p: plan for p, _ in iter_packable_weights(sparams)}
+                 if mode == "dsp_tuned" else None)
+        toks = [Engine(smoke, sparams, ServeConfig(
+                    n_slots=2, max_len=32, prefill_chunk=4, max_new=6, quant_mode=mode,
+                    device="cuda", use_kernel=uk), plan_table=table).generate(prompts)
+                for uk in (True, False)]
+        if toks[0] != toks[1]:
+            raise RuntimeError(f"{mode}: kernel engine {toks[0]} != plain engine {toks[1]}")
+        log(f"agreement {mode}: kernel and plain engines emit identical tokens")
+
+    head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
+    where = {
+        "int4_matmul": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
+                        "src/repro/kernels/int4_matmul.py:61"),
+        "packed_matmul_prepacked": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
+                                    "src/repro/kernels/packed_matmul.py:277"),
+        "packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
+                          "src/repro/kernels/packed_matmul.py:127"),
+    }
+    kernels = []
+    for name, (source, replaces) in where.items():
+        r = head[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(c[2] for c in checks if c[0] == name),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": f"M={r['M']} K={r['K']} N={r['N']}",
+        })
+    if json_path is not None:
+        json_path.parent.mkdir(parents=True, exist_ok=True)
+        json_path.write_text(json.dumps({
+            "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+            "kernels": kernels, "timings": rows, "serving": serving_out,
+            "checks": len(checks), "seconds": time.perf_counter() - t_start,
+        }, indent=1))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,293 @@
+// Pair-packed "DSP-sim" matmul for Hopper (sm_90a): (M, K) unsigned
+// activations x signed weights -> (M, N) int32, in the paper's packed
+// int32 arithmetic, for any legal PackedDotSpec.
+//
+// Replaces two TPU kernels of src/repro/kernels/packed_matmul.py:
+//   * packed_matmul_prepacked (Pallas body _prepacked_kernel, with the fused
+//     activation-quantize prologue _quantize_tile): weights arrive packed
+//     once as pair words (n_chunks, n_pairs, N) int32, plus, for mr plans,
+//     the paired weights wsc (n_chunks, n_pairs, 2, N) int32;
+//   * packed_matmul (Pallas body _kernel): weights arrive as (K, N) int8
+//     signed integers and are packed into words as they are read.
+// Per activation bit-slice column j: activation pair words
+// x[2i] + (x[2i+1] << p) times weight words w[2i+1] + (w[2i] << p),
+// multiply-accumulated n_pairs at a time in wrapping int32; each chunk's
+// middle field is extracted (floor or round-half-up, sign-extended at
+// p + mr_bits; mr plans subtract sum(x[2i+1] * w[2i]) mod 2**mr_bits at the
+// top mr_bits), and the fields are summed and recombined as
+// field << (j * col_bits_a).  All wrapping arithmetic runs in uint32 (signed
+// overflow and left shifts of negative values are undefined in C++17); only
+// the extraction's arithmetic right shifts run on int32.
+//
+// What bounds it on this card: at decode shapes (M = 4) it streams 2 bytes
+// of words per weight, plus 2 bytes of even-lane wsc for mr plans, and does
+// 2*M (4*M for mr) 32-bit multiply-adds per weight and column: HBM bytes
+// bound it.  At prefill shapes (M = 64) the 32-bit IMADs on the CUDA cores
+// bound it: there is no tensor-core form of a wrapping int32 x int32
+// product.
+//
+// What the design does about it: each thread owns one output column and
+// reads its words once per M tile, coalesced across the warp; activation
+// pair words for the block's M tile are built once per K tile into shared
+// memory (quantized there from f32 in the fused form, so the integer
+// activations never touch HBM) in a row-fastest layout, so one 128-bit
+// broadcast load feeds four rows' multiply-adds, and each weight word is
+// loaded once for up to four column streams.  Extraction happens
+// exactly every n_pairs products (a K tile holds whole chunks).  The pair
+// loop is unrolled four deep so several word loads are in flight, and
+// layers too narrow to put about eight blocks on every SM split the chunks
+// over blocks; the partial sums meet with integer atomicAdd, exact and
+// order-independent mod 2**32.  Not yet done: a
+// compact wsc stream (only its even lane and mr_bits of it are read), TMA,
+// a load pipeline.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Launch parameters; mirrored field for field by the Python wrapper.
+struct PackedParams {
+  int M, K, N;          // K: activation columns (x's row length)
+  int kw;               // weight rows the word grid covers (raw: K of w)
+  int n_chunks, n_pairs, p, n_columns, col_bits_a, mr_bits;
+  int rounds_half_up, uses_mr, zp;
+  int tile_chunks, chunks_per_split;
+};
+
+namespace {
+
+using Params = PackedParams;
+constexpr int kThreads = 128;  // one output column per thread
+
+__device__ __forceinline__ int32_t sext(uint32_t v, int width) {
+  const uint32_t mask = (1u << width) - 1u;
+  const uint32_t sign = 1u << (width - 1);
+  return (int32_t)(((v & mask) ^ sign) - sign);
+}
+
+__device__ __forceinline__ int32_t extract(uint32_t partial_u, uint32_t contam,
+                                           const Params& P) {
+  const int32_t partial = (int32_t)partial_u;
+  int32_t t;
+  if (P.rounds_half_up) t = (int32_t)((uint32_t)(partial >> (P.p - 1)) + 1u) >> 1;
+  else t = partial >> P.p;
+  const int we = P.p + (P.uses_mr ? P.mr_bits : 0);
+  int32_t e = sext((uint32_t)t, we);
+  if (P.uses_mr) e = sext((uint32_t)e - (contam << (we - P.mr_bits)), we);
+  return e;
+}
+
+// One activation value as an unsigned integer.  Fused form: the f32
+// activation quantized offset-binary, round half to even (rintf) after an
+// IEEE division, exactly the reference's round(x / scale) + zp, clipped.
+// Positions past K read as f32 0 (fused) or 0 (integer form), as the
+// reference pads them.
+template <bool FUSED>
+__device__ __forceinline__ uint32_t load_x(const void* x, const float* scale, int row,
+                                           int k, const Params& P) {
+  if (FUSED) {
+    const float xv = k < P.K ? static_cast<const float*>(x)[(size_t)row * P.K + k] : 0.0f;
+    float q = rintf(xv / scale[row]) + (float)P.zp;
+    q = fminf(fmaxf(q, 0.0f), (float)(2 * P.zp - 1));
+    return (uint32_t)(int32_t)q;
+  }
+  return k < P.K ? (uint32_t)static_cast<const int32_t*>(x)[(size_t)row * P.K + k] : 0u;
+}
+
+// RAW = weights are (kw, N) int8 signed ints packed on the fly; otherwise
+// prepacked words (+ wsc for mr plans).  NCP = activation columns served
+// per pass over the weights (a divisor of n_columns): each weight word is
+// loaded once per pass and multiplied into NCP column streams.
+template <int BM, int NCP, bool FUSED, bool RAW>
+__global__ void __launch_bounds__(kThreads)
+packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_scale,
+                     const int32_t* __restrict__ words, const int32_t* __restrict__ wsc,
+                     const int8_t* __restrict__ w_raw, int32_t* __restrict__ out,
+                     Params P) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int m0 = blockIdx.x * BM;
+  const int n = blockIdx.y * kThreads + threadIdx.x;
+  const int c_begin = blockIdx.z * P.chunks_per_split;
+  const int c_end = min(c_begin + P.chunks_per_split, P.n_chunks);
+  const int chunk = 2 * P.n_pairs;
+  const int tp = P.tile_chunks * P.n_pairs;  // pair words per staged K tile
+  // layout [column j][pair q][row m], rows fastest: one uint4 = four rows
+  uint32_t* aw = smem;
+  uint32_t* xo = smem + (size_t)P.n_columns * tp * BM;
+  const uint32_t cmask = P.n_columns == 1 ? 0xFFFFFFFFu : (1u << P.col_bits_a) - 1u;
+  const uint32_t mrmask = (1u << P.mr_bits) - 1u;
+
+  uint32_t acc[BM];
+#pragma unroll
+  for (int m = 0; m < BM; ++m) acc[m] = 0u;
+
+  for (int ct = c_begin; ct < c_end; ct += P.tile_chunks) {
+    const int nct = min(P.tile_chunks, c_end - ct);
+    const int tpt = nct * P.n_pairs;
+    __syncthreads();  // the previous tile's words are consumed
+    // stage: each (row, pair) quantizes its two activations once and
+    // writes the pair word of every column slice
+    for (int idx = threadIdx.x; idx < tpt * BM; idx += kThreads) {
+      const int m = idx % BM;
+      const int q = idx / BM;
+      const int row = m0 + m;
+      const int k = ct * chunk + 2 * q;
+      uint32_t v0 = 0u, v1 = 0u;
+      if (row < P.M) {
+        v0 = load_x<FUSED>(x, x_scale, row, k, P);
+        v1 = load_x<FUSED>(x, x_scale, row, k + 1, P);
+      }
+      for (int j = 0; j < P.n_columns; ++j) {
+        const uint32_t s0 = (v0 >> (j * P.col_bits_a)) & cmask;
+        const uint32_t s1 = (v1 >> (j * P.col_bits_a)) & cmask;
+        const size_t at = ((size_t)j * tp + q) * BM + m;
+        aw[at] = s0 + (s1 << P.p);
+        xo[at] = s1 & mrmask;
+      }
+    }
+    __syncthreads();
+    if (n < P.N) {
+      for (int j0 = 0; j0 < P.n_columns; j0 += NCP) {
+        for (int cc = 0; cc < nct; ++cc) {
+          const int c = ct + cc;
+          uint32_t part[NCP][BM], cont[NCP][BM];
+#pragma unroll
+          for (int jj = 0; jj < NCP; ++jj)
+#pragma unroll
+            for (int m = 0; m < BM; ++m) part[jj][m] = cont[jj][m] = 0u;
+          // unrolled so that several pairs' word loads are in flight at once
+#pragma unroll 4
+          for (int pp = 0; pp < P.n_pairs; ++pp) {
+            uint32_t wword, weven;
+            if (RAW) {
+              const int k = c * chunk + 2 * pp;
+              const int32_t w0 = k < P.kw ? (int32_t)w_raw[(size_t)k * P.N + n] : 0;
+              const int32_t w1 = k + 1 < P.kw ? (int32_t)w_raw[(size_t)(k + 1) * P.N + n] : 0;
+              wword = (uint32_t)w1 + ((uint32_t)w0 << P.p);
+              weven = (uint32_t)w0 & mrmask;
+            } else {
+              const size_t wi = ((size_t)c * P.n_pairs + pp) * P.N + n;
+              wword = (uint32_t)__ldg(words + wi);
+              weven = P.uses_mr
+                  ? (uint32_t)__ldg(wsc + (((size_t)c * P.n_pairs + pp) * 2) * P.N + n) & mrmask
+                  : 0u;
+            }
+#pragma unroll
+            for (int jj = 0; jj < NCP; ++jj) {
+              const size_t base =
+                  ((size_t)(j0 + jj) * tp + (size_t)cc * P.n_pairs + pp) * BM;
+              const uint4* a4 = reinterpret_cast<const uint4*>(aw + base);
+#pragma unroll
+              for (int m4 = 0; m4 < BM / 4; ++m4) {
+                const uint4 a = a4[m4];
+                part[jj][4 * m4 + 0] += a.x * wword;
+                part[jj][4 * m4 + 1] += a.y * wword;
+                part[jj][4 * m4 + 2] += a.z * wword;
+                part[jj][4 * m4 + 3] += a.w * wword;
+              }
+              if (P.uses_mr) {
+                const uint4* o4 = reinterpret_cast<const uint4*>(xo + base);
+#pragma unroll
+                for (int m4 = 0; m4 < BM / 4; ++m4) {
+                  const uint4 a = o4[m4];
+                  cont[jj][4 * m4 + 0] += a.x * weven;
+                  cont[jj][4 * m4 + 1] += a.y * weven;
+                  cont[jj][4 * m4 + 2] += a.z * weven;
+                  cont[jj][4 * m4 + 3] += a.w * weven;
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < NCP; ++jj) {
+            const uint32_t shift = (uint32_t)((j0 + jj) * P.col_bits_a);
+#pragma unroll
+            for (int m = 0; m < BM; ++m)
+              acc[m] += (uint32_t)extract(part[jj][m], cont[jj][m] & mrmask, P) << shift;
+          }
+        }
+      }
+    }
+  }
+
+  if (n < P.N) {
+    const bool split = gridDim.z > 1;
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      if (m0 + m < P.M) {
+        int32_t* o = out + (size_t)(m0 + m) * P.N + n;
+        if (split) atomicAdd(o, (int32_t)acc[m]);
+        else *o = (int32_t)acc[m];
+      }
+    }
+  }
+}
+
+template <int BM, int NCP, bool FUSED, bool RAW>
+int launch(const void* x, const float* x_scale, const int32_t* words, const int32_t* wsc,
+           const int8_t* w_raw, int32_t* out, const Params& P, int splits,
+           cudaStream_t stream) {
+  auto kernel = packed_matmul_kernel<BM, NCP, FUSED, RAW>;
+  const size_t smem = 2u * (size_t)P.n_columns * P.tile_chunks * P.n_pairs * BM *
+                      sizeof(uint32_t);
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((P.M + BM - 1) / BM, (P.N + kThreads - 1) / kThreads, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(x, x_scale, words, wsc, w_raw, out, P);
+  return (int)cudaGetLastError();
+}
+
+// Columns per pass: the largest of 4, 2, 1 dividing n_columns whose
+// NCP x BM accumulators stay within 32 registers' worth per array.
+template <int BM, bool FUSED, bool RAW>
+int dispatch_ncp(const void* x, const float* x_scale, const int32_t* words,
+                 const int32_t* wsc, const int8_t* w_raw, int32_t* out, const Params& P,
+                 int splits, cudaStream_t stream) {
+  if (BM <= 8 && P.n_columns % 4 == 0)
+    return launch<BM, (BM <= 8 ? 4 : 2), FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P,
+                                                      splits, stream);
+  if (P.n_columns % 2 == 0)
+    return launch<BM, 2, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+  return launch<BM, 1, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+}
+
+template <bool FUSED, bool RAW>
+int dispatch_bm(int bm, const void* x, const float* x_scale, const int32_t* words,
+                const int32_t* wsc, const int8_t* w_raw, int32_t* out, const Params& P,
+                int splits, cudaStream_t stream) {
+  if (bm == 4) return dispatch_ncp<4, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+  if (bm == 8) return dispatch_ncp<8, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+  if (bm == 16) return dispatch_ncp<16, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Prepacked entry.  x_scale == nullptr: x holds int32 unsigned activations;
+// otherwise x is f32 and is quantized in the prologue with zp = P.zp.
+// wsc may be nullptr for plans without an mr correction.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int packed_matmul_prepacked_launch(const void* x, const void* x_scale,
+                                              const void* words, const void* wsc,
+                                              void* out, const PackedParams* P, int bm,
+                                              int splits, void* stream) {
+  const auto* s = static_cast<const float*>(x_scale);
+  const auto* wd = static_cast<const int32_t*>(words);
+  const auto* wc = static_cast<const int32_t*>(wsc);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (s != nullptr) return dispatch_bm<true, false>(bm, x, s, wd, wc, nullptr, o, *P, splits, st);
+  return dispatch_bm<false, false>(bm, x, nullptr, wd, wc, nullptr, o, *P, splits, st);
+}
+
+// Per-call entry: x int32 unsigned activations (M, K), w (K, N) int8 signed
+// integers packed into words as they are read.
+extern "C" int packed_matmul_launch(const void* x, const void* w, void* out,
+                                    const PackedParams* P, int bm, int splits,
+                                    void* stream) {
+  return dispatch_bm<false, true>(bm, x, nullptr, nullptr, nullptr,
+                                  static_cast<const int8_t*>(w), static_cast<int32_t*>(out),
+                                  *P, splits, static_cast<cudaStream_t>(stream));
+}

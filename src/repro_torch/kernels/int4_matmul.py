@@ -1,0 +1,68 @@
+"""Packed-storage int4 matmul: wrapper of ``csrc/int4_matmul.cu``.
+
+(M, K) int8 activations x (K//2, N) uint8 weights, two signed nibbles per
+byte -> (M, N) int32.  Counterpart of the reference's
+``repro.kernels.int4_matmul.int4_matmul``.  A CUDA tensor launches the
+kernel (or raises); a CPU tensor runs the plain version
+:func:`int4_matmul_plain`, which is the only reason it ever does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+from ._launch import require, split_k
+
+__all__ = ["int4_matmul", "int4_matmul_plain"]
+
+_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def int4_matmul_plain(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: unpack the nibbles, exact integer matmul."""
+    return ref.ref_int4_matmul(x_q, w_packed)
+
+
+def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (K//2, N) packed-nibble uint8 -> (M, N) int32."""
+    if x_q.dim() != 2 or w_packed.dim() != 2 or x_q.shape[1] != 2 * w_packed.shape[0]:
+        raise ValueError(
+            f"int4_matmul wants (M, K) x (K//2, N), got {tuple(x_q.shape)} "
+            f"x {tuple(w_packed.shape)}"
+        )
+    if not x_q.is_cuda:
+        return int4_matmul_plain(x_q, w_packed)
+    dev = x_q.device
+    m, k = x_q.shape
+    n = w_packed.shape[1]
+    # the kernel takes K and N in multiples of 4: pad with zero activations
+    # and zero nibbles (bit-transparent); the main path's shapes never pad
+    pad_k, pad_n = (-k) % 4, (-n) % 4
+    if pad_k or pad_n:
+        x_q = torch.nn.functional.pad(x_q, (0, pad_k))
+        w_packed = torch.nn.functional.pad(w_packed, (0, pad_n, 0, pad_k // 2))
+    require(x_q, "x_q", torch.int8, dev, 2)
+    require(w_packed, "w_packed", torch.uint8, dev, 2)
+    kp, np_ = k + pad_k, n + pad_n
+    bm = 4 if m <= 4 else 8 if m <= 8 else 16
+    blocks = -(-m // bm) * -(-(np_ // 4) // 128)
+    per = split_k(blocks, kp // 4, dev, min_units=32)
+    splits = -(-(kp // 4) // per)
+    out = (torch.zeros if splits > 1 else torch.empty)(
+        (m, np_), dtype=torch.int32, device=dev
+    )
+    fn = build.library("int4_matmul").int4_matmul_launch
+    fn.argtypes, fn.restype = _argtypes, ctypes.c_int
+    err = fn(x_q.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, kp, np_,
+             bm, splits, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "int4_matmul")
+    int4_matmul.launches += 1
+    return out[:, :n] if pad_n else out
+
+
+int4_matmul.launches = 0

@@ -1,0 +1,66 @@
+"""ModelConfig: one dataclass describes every architecture family.
+
+The port's own copy of the reference's ``repro.models.config.ModelConfig``
+(plain data, field for field).  The port builds the ``dense`` family;
+the other families' fields are kept so every registry entry reads the
+same, and building one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..core.packed_linear import LinearSpec
+
+__all__ = ["ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int | None = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    mlp_variant: str = "swiglu"  # swiglu (3-matrix) | gelu (2-matrix)
+
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+
+    # hybrid (jamba)
+    attn_every: int = 0
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+
+    # xlstm
+    slstm_every: int = 0
+
+    # encoder-decoder (whisper)
+    n_encoder_layers: int = 0
+    encoder_len: int = 1500
+
+    # vlm (llava)
+    n_patches: int = 0
+
+    # compilation / memory policy of the reference (kept as data)
+    scan_layers: bool = True
+    remat: str = "dots"
+    attention_chunk: int = 0
+    dtype: str = "bfloat16"
+    quant: LinearSpec = LinearSpec()
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads

@@ -1,0 +1,192 @@
+"""Transformer layers of the dense family, as functions on tensors.
+
+Counterpart of the reference's ``repro.models.layers``: ``rmsnorm``,
+``rope``, GQA ``attention`` (the causal no-cache branch and the dense-cache
+branch with per-row positions), the SwiGLU ``mlp`` and ``gelu_mlp``.  Every
+projection goes through :func:`core.packed_linear.apply_linear`.  Attention
+is plain PyTorch (einsum and softmax), as it is jnp in the reference; the
+paged, sliding-window and cross-attention branches are not ported yet and
+raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..core.packed_linear import LinearSpec, apply_linear
+from .config import ModelConfig
+
+__all__ = [
+    "rmsnorm", "rope", "attention", "mlp", "gelu_mlp", "init_linear",
+    "init_rmsnorm", "init_attention", "init_mlp", "init_gelu_mlp",
+    "init_kv_cache",
+]
+
+Params = dict[str, Any]
+
+NEG_INF = -1e9  # mask value safe in bf16
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool,
+                dtype: torch.dtype, device: torch.device) -> Params:
+    w = torch.randn((d_in, d_out), generator=gen, dtype=dtype, device=device)
+    params = {"w": w.mul_(d_in**-0.5)}
+    if bias:
+        params["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return params
+
+
+def init_rmsnorm(d: int, dtype: torch.dtype, device: torch.device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    # variance in f32, normalization in the compute dtype (as the reference)
+    xf = x.to(torch.float32)
+    var = torch.einsum("...d,...d->...", xf, xf) / x.shape[-1]
+    scale = torch.rsqrt(var + eps)[..., None].to(x.dtype)
+    return x * scale * params["scale"].to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,).  Angles in f32, the
+    rotation in the compute dtype."""
+    hd = x.shape[-1]
+    freqs = theta ** (
+        -torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
+    )
+    angles = positions[..., None].to(torch.float32) * freqs
+    if angles.dim() == 2:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                   device: torch.device) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": init_linear(gen, d, cfg.n_heads * hd, cfg.qkv_bias, dtype, device),
+        "wk": init_linear(gen, d, cfg.n_kv_heads * hd, cfg.qkv_bias, dtype, device),
+        "wv": init_linear(gen, d, cfg.n_kv_heads * hd, cfg.qkv_bias, dtype, device),
+        "wo": init_linear(gen, cfg.n_heads * hd, d, False, dtype, device),
+    }
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return x
+    b, s, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
+
+
+def attention(
+    params: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    cache: Params | None = None,
+    causal: bool = True,
+) -> tuple[torch.Tensor, Params | None]:
+    """GQA attention.  ``cache=None``: full sequence (causal).  With a dense
+    ``cache`` ({"k", "v"}: (B, window, n_kv, hd)): decode or cached chunked
+    prefill; every row writes its K/V at its own position and attends over
+    the cache.  Returns ``(out, new_cache)``; the cache passed in is not
+    modified (the engine merges rows, as the reference's)."""
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "sliding-window attention is not ported yet (ROADMAP queue 8)"
+        )
+    if cache is not None and "pages_k" in cache:
+        raise NotImplementedError(
+            "paged attention is not ported yet (ROADMAP queue 9)"
+        )
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    spec = cfg.quant
+    q = apply_linear(params["wq"], x, spec).reshape(b, s, nh, hd)
+    k = apply_linear(params["wk"], x, spec).reshape(b, s, nkv, hd)
+    v = apply_linear(params["wv"], x, spec).reshape(b, s, nkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        window = cache["k"].shape[1]
+        if positions.dim() == 2:
+            row_pos = positions[:, 0]
+        else:
+            row_pos = positions.reshape(-1)[:1].expand(b)
+        # the update slice is clamped to fit the window, as
+        # lax.dynamic_update_slice clamps its start index
+        start = row_pos.clamp(0, window - s)
+        idx = (start[:, None] + torch.arange(s, device=x.device)[None])
+        idx = idx[:, :, None, None].expand(b, s, nkv, hd)
+        k_all = cache["k"].scatter(1, idx, k.to(cache["k"].dtype))
+        v_all = cache["v"].scatter(1, idx, v.to(cache["v"].dtype))
+        new_cache = {"k": k_all, "v": v_all}
+        k, v = k_all, v_all
+        cache_positions = torch.arange(window, device=x.device)
+        qidx = torch.arange(s, device=x.device)
+        valid = (cache_positions[None, None, :]
+                 <= row_pos[:, None, None] + qidx[None, :, None])
+        mask = torch.where(valid[:, None, :, :], 0.0, NEG_INF)
+    elif causal:
+        ii = positions if positions.dim() == 2 else positions[None]
+        ok = ii[:, None, :] <= ii[:, :, None]
+        mask = torch.where(ok[:, None, :, :], 0.0, NEG_INF)
+    else:
+        mask = None
+
+    k = _repeat_kv(k, nh // nkv)
+    v = _repeat_kv(v, nh // nkv)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * hd**-0.5
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, nh * hd)
+    return apply_linear(params["wo"], out, spec), new_cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype, device: torch.device) -> Params:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             device: torch.device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "up": init_linear(gen, d, f, False, dtype, device),
+        "gate": init_linear(gen, d, f, False, dtype, device),
+        "down": init_linear(gen, f, d, False, dtype, device),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor, spec: LinearSpec) -> torch.Tensor:
+    if "gate" not in params:  # 2-matrix GELU variant
+        return gelu_mlp(params, x, spec)
+    up = apply_linear(params["up"], x, spec)
+    gate = apply_linear(params["gate"], x, spec)
+    return apply_linear(params["down"], F.silu(gate) * up, spec)
+
+
+def init_gelu_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                  device: torch.device) -> Params:
+    return {
+        "up": init_linear(gen, cfg.d_model, cfg.d_ff, False, dtype, device),
+        "down": init_linear(gen, cfg.d_ff, cfg.d_model, False, dtype, device),
+    }
+
+
+def gelu_mlp(params: Params, x: torch.Tensor, spec: LinearSpec) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    hidden = apply_linear(params["up"], x, spec)
+    return apply_linear(params["down"], F.gelu(hidden, approximate="tanh"), spec)

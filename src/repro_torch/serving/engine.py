@@ -1,0 +1,404 @@
+"""Fixed-slot batched serving engine.
+
+Counterpart of the reference's ``repro.serving.engine.Engine``: a fixed
+pool of ``n_slots`` sequences shares one decode cache; the scheduler admits
+queued requests into free slots and finished sequences free them.
+
+* **batched chunked prefill** — admitted prompts are padded onto a shared
+  ``(n_slots, prefill_chunk)`` grid and every chunk is one forward call;
+  rows not being prefilled are masked out of the cache merge, so
+  admission can overlap slots that are mid-decode.  The last prompt
+  position's hidden state is gathered per row and the lm_head runs once.
+* **decode step** — advances every active slot one token per call, with
+  per-row positions so slots sit at different depths.
+* **sampling** — greedy or temperature/top-k/top-p per slot
+  (``serving.sampling``).
+
+``quant_mode`` selects the weight path (``native``, ``int4_packed``,
+``dsp_packed``, ``dsp_tuned``), converted once at build
+(``core.packed_params.quantize_for_serving``).  Until the tuner is ported
+(ROADMAP queue 6), the ``dsp_tuned`` plans come in as a constructor
+argument, ``plan_table={path: PackedDotSpec}``; a path absent from it
+serves :data:`INT4_EXACT`.  Termination goes through one code path
+(``_finish_slot``): EOS, per-request ``max_new`` and the cache capacity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..core.packed_params import SERVING_MODES, iter_packable_weights, quantize_for_serving
+from ..device import resolve_device
+from ..kernels.ref import INT4_EXACT, PackedDotSpec
+from ..models import transformer as T
+from ..models.config import ModelConfig
+from .sampling import SamplingParams, row_seed, sample_tokens
+from .scheduler import Scheduler
+
+__all__ = ["ServeConfig", "Engine"]
+
+# reference knobs of later slices: rejected by name while unported
+_LATER = {
+    "governor": "ROADMAP queue 9 (load policy)",
+    "deadline_ms": "ROADMAP queue 9 (load policy)",
+    "page_size": "ROADMAP queue 9 (paged continuous serving)",
+    "n_pages": "ROADMAP queue 9 (paged continuous serving)",
+    "watermark_pages": "ROADMAP queue 9 (paged continuous serving)",
+    "plan_db": "ROADMAP queue 6 (plan search)",
+    "tp": "ROADMAP queue 10 (tensor parallelism)",
+}
+_LATER_MODES = {
+    "dsp_mixed": "ROADMAP queue 6 (plan search)",
+    "int8": "a later slice of ROADMAP queue 3",
+    "none": "use 'native'",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Everything the engine decides at build time, in one frozen record.
+
+    ``device`` defaults to ``"cuda"`` and ``use_kernel`` (``None``) to
+    "the CUDA kernels on a CUDA device".  The reference's governor, tensor
+    parallelism, plan database, deadlines and paged-cache settings are
+    fields so that a reference configuration reads the same; setting one
+    raises, naming the roadmap queue that ports it.
+    """
+
+    n_slots: int = 8
+    max_len: int = 512
+    prefill_chunk: int = 16
+    max_new: int = 64          # default per-request budget (submit can override)
+    eos_token: int = 1
+    quant_mode: str = "native"
+    use_kernel: bool | None = None
+    prepack: bool = True       # dsp_tuned: build the pair words once
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    device: str = "cuda"
+    governor: bool = False
+    deadline_ms: float | None = None
+    page_size: int | None = None
+    n_pages: int | None = None
+    watermark_pages: int | None = None
+    plan_db: str | None = None
+    tp: int = 1
+
+    def __post_init__(self) -> None:
+        for name, queue in _LATER.items():
+            default = ServeConfig.__dataclass_fields__[name].default
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"ServeConfig.{name} is not ported yet: {queue}"
+                )
+        if self.quant_mode in _LATER_MODES:
+            raise NotImplementedError(
+                f"quant_mode {self.quant_mode!r} is not ported yet: "
+                f"{_LATER_MODES[self.quant_mode]}"
+            )
+        if self.quant_mode not in SERVING_MODES:
+            raise ValueError(
+                f"quant_mode {self.quant_mode!r} not in {SERVING_MODES}"
+            )
+        if self.n_slots < 1 or self.max_len < 1 or self.prefill_chunk < 1:
+            raise ValueError("n_slots, max_len and prefill_chunk must be >= 1")
+
+
+def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
+                            use_kernel: bool, plan_table):
+    """Switch the arithmetic mode and quantize the weights onto it.
+    Returns ``(cfg, params, plan_table)``; for ``dsp_tuned`` the table is
+    resolved over every packable path (``INT4_EXACT`` where absent)."""
+    if plan_table is not None and scfg.quant_mode != "dsp_tuned":
+        raise ValueError(
+            f"plan_table was given but quant_mode is {scfg.quant_mode!r}; "
+            "it is only served under 'dsp_tuned'"
+        )
+    if scfg.quant_mode == "native":
+        return cfg, params, {}
+    cfg = dataclasses.replace(
+        cfg, quant=dataclasses.replace(
+            cfg.quant, mode=scfg.quant_mode, use_kernel=use_kernel
+        ),
+    )
+    resolved: dict[str, PackedDotSpec] = {}
+    if scfg.quant_mode == "dsp_tuned":
+        plan_table = plan_table or {}
+        resolved = {p: plan_table.get(p, INT4_EXACT)
+                    for p, _ in iter_packable_weights(params)}
+    params = quantize_for_serving(
+        params, scfg.quant_mode, plans=resolved, prepack=scfg.prepack,
+        use_kernel=use_kernel,
+    )
+    return cfg, params, resolved
+
+
+class Engine:
+    """Fixed-slot batched serving engine.
+
+    :meth:`submit` queues a prompt (``admit=True`` pulls it into a free slot
+    at once); :meth:`step` admits what fits, then decodes one token per
+    active slot and returns the rids finished this step; tokens are read
+    back from ``scheduler.requests`` or :meth:`drain_stream`, counters via
+    :meth:`stats`; :meth:`generate` wraps the loop for batch callers.
+    ``params`` must already lie on ``serve_cfg.device``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
+                 plan_table: dict[str, PackedDotSpec] | None = None):
+        self.device = resolve_device(serve_cfg.device)
+        use_kernel = (self.device.type == "cuda" if serve_cfg.use_kernel is None
+                      else serve_cfg.use_kernel)
+        if use_kernel and self.device.type != "cuda":
+            raise ValueError("use_kernel=True runs the CUDA kernels: it needs "
+                             "device='cuda'")
+        embed = params["embed"]["w"]
+        if embed.device.type != self.device.type:
+            raise ValueError(f"params lie on {embed.device}, the engine serves "
+                             f"on {self.device}")
+        self.use_kernel = use_kernel
+        cfg, params, self.plan_table = _prepare_serving_params(
+            cfg, params, serve_cfg, use_kernel, plan_table
+        )
+        self.cfg = cfg
+        self.params = params
+        self.scfg = serve_cfg
+        b = serve_cfg.n_slots
+        self._chunk = max(1, min(serve_cfg.prefill_chunk, serve_cfg.max_len))
+        # the prefill grid is padded to whole chunks: allocate the cache on
+        # the same grid so the last chunk's writes never clamp
+        window = -(-serve_cfg.max_len // self._chunk) * self._chunk
+        self.cache = T.init_cache(cfg, b, window, device=self.device)
+        self.positions = np.zeros(b, np.int64)
+        self.active = np.zeros(b, bool)
+        self.last_token = np.zeros(b, np.int64)
+        self._slot_rid = np.full(b, -1, np.int64)
+        self._temperature = np.zeros(b, np.float32)
+        self._top_k = np.zeros(b, np.int64)
+        self._top_p = np.ones(b, np.float32)
+        self.scheduler = Scheduler()
+        self._stream: deque[tuple[int, int]] = deque()
+
+    # ---- device steps ---------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sample(self, logits: torch.Tensor, positions: np.ndarray) -> np.ndarray:
+        seeds = [row_seed(self.scfg.seed, int(rid), int(pos)) if t > 0 and rid >= 0
+                 else 0
+                 for rid, pos, t in zip(self._slot_rid, positions, self._temperature)]
+        return sample_tokens(
+            logits, seeds, self._tensor(self._temperature),
+            self._tensor(self._top_k), self._tensor(self._top_p),
+        ).cpu().numpy()
+
+    @staticmethod
+    def _merge(cache, new_cache, row_mask: torch.Tensor):
+        """Take ``new_cache`` rows where ``row_mask``, ``cache`` elsewhere."""
+        m = row_mask[:, None, None, None]
+        return [{"attn": {n: torch.where(m, nl["attn"][n], ol["attn"][n])
+                          for n in ("k", "v")}}
+                for ol, nl in zip(cache, new_cache)]
+
+    def _prefill_chunk(self, cache, tokens, base: int, row_mask, last_idx,
+                       last_hidden):
+        """One chunk of batched prefill over positions ``[base, base + C)``;
+        collects each admitted row's last-prompt-position hidden state."""
+        b, c = tokens.shape
+        positions = (base + torch.arange(c, device=self.device))[None].expand(b, c)
+        hidden, new_cache, _ = T.forward(
+            self.params, self.cfg, tokens, positions=positions, cache=cache,
+            return_hidden=True,
+        )
+        cache = self._merge(cache, new_cache, row_mask)
+        idx = (last_idx - base).clamp(0, c - 1)
+        row_hidden = hidden[torch.arange(b, device=self.device), idx]
+        in_chunk = row_mask & (last_idx >= base) & (last_idx < base + c)
+        last_hidden = torch.where(in_chunk[:, None],
+                                  row_hidden.to(last_hidden.dtype), last_hidden)
+        return cache, last_hidden
+
+    def _lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(n_slots, d) hidden -> (n_slots, V) f32 logits (``T.forward``'s head)."""
+        if self.cfg.tie_embeddings:
+            return hidden.to(torch.float32) @ self.params["embed"]["w"].T.to(torch.float32)
+        from ..core.packed_linear import apply_linear
+
+        return apply_linear(self.params["lm_head"], hidden, self.cfg.quant).to(
+            torch.float32)
+
+    # ---- request lifecycle ----------------------------------------------
+    def submit(self, prompt: list[int], max_new: int | None = None,
+               sampling: SamplingParams | None = None,
+               admit: bool = True) -> int:
+        """Enqueue a request; it is admitted as soon as a slot frees up.
+        ``admit=False`` defers admission to the next :meth:`step` so that a
+        burst of submissions shares one batched prefill.  Returns the rid."""
+        if len(prompt) > self.scfg.max_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} > max_len ({self.scfg.max_len})"
+            )
+        if max_new is None:
+            max_new = self.scfg.max_new
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if sampling is None:
+            sampling = SamplingParams(
+                self.scfg.temperature, self.scfg.top_k, self.scfg.top_p
+            )
+        rid = self.scheduler.submit(prompt, max_new, sampling)
+        if admit:
+            self._admit()
+        return rid
+
+    @torch.inference_mode()
+    def _admit(self) -> list[int]:
+        """Move queued requests into free slots: batched chunked prefill and
+        the first-token sample.  Returns rids finished during admission."""
+        free = np.flatnonzero(~self.active)
+        admitted = self.scheduler.admit(len(free))
+        if not admitted:
+            return []
+        t0 = time.monotonic()
+        b, c = self.scfg.n_slots, self._chunk
+        lmax = max(len(r.prompt) for r in admitted)
+        n_chunks = -(-lmax // c)
+        tokens = np.zeros((b, n_chunks * c), np.int64)
+        row_mask = np.zeros(b, bool)
+        last_idx = np.zeros(b, np.int64)
+        for slot, req in zip(free, admitted):
+            ln = len(req.prompt)
+            tokens[slot, :ln] = req.prompt
+            row_mask[slot] = True
+            last_idx[slot] = ln - 1
+            self.positions[slot] = ln
+            self.active[slot] = True
+            self._slot_rid[slot] = req.rid
+            self._temperature[slot] = req.sampling.temperature
+            self._top_k[slot] = req.sampling.top_k
+            self._top_p[slot] = req.sampling.top_p
+
+        # a fresh request must not see the previous occupant's KV
+        fresh = self._tensor(row_mask)[:, None, None, None]
+        cache = [{"attn": {n: layer["attn"][n].masked_fill(fresh, 0)
+                           for n in ("k", "v")}}
+                 for layer in self.cache]
+        last_hidden = torch.zeros((b, self.cfg.d_model), dtype=T.compute_dtype(self.cfg),
+                                  device=self.device)
+        last_idx_t = self._tensor(last_idx)
+        for ci in range(n_chunks):
+            base = ci * c
+            # rows whose prompt is already written skip later chunks
+            mask_c = self._tensor(row_mask & (last_idx >= base))
+            cache, last_hidden = self._prefill_chunk(
+                cache, self._tensor(tokens[:, base:base + c]), base, mask_c,
+                last_idx_t, last_hidden,
+            )
+            own_done = [r for r in admitted if (len(r.prompt) - 1) // c == ci]
+            if own_done:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.scheduler.note_prefill_done(own_done)
+        self.cache = cache
+        first = self._sample(self._lm_head(last_hidden), last_idx)
+        n_prompt_tokens = sum(len(r.prompt) for r in admitted)
+        self.scheduler.note_prefill(n_prompt_tokens, time.monotonic() - t0)
+        finished = []
+        for slot, req in zip(free, admitted):
+            tok = int(first[slot])
+            req.tokens.append(tok)
+            self._stream.append((req.rid, tok))
+            self.last_token[slot] = tok
+            rid = self._maybe_finish(slot, tok)
+            if rid is not None:
+                finished.append(rid)
+        return finished
+
+    def _maybe_finish(self, slot: int, tok: int) -> int | None:
+        """Single termination path: EOS, per-request budget, cache capacity."""
+        req = self.scheduler.requests[int(self._slot_rid[slot])]
+        if tok == self.scfg.eos_token:
+            return self._finish_slot(slot, "eos")
+        if len(req.tokens) >= req.max_new:
+            return self._finish_slot(slot, "length")
+        # positions[slot] is the next cache write index: the last admissible
+        # decode reads position max_len - 1
+        if self.positions[slot] >= self.scfg.max_len:
+            return self._finish_slot(slot, "length")
+        return None
+
+    def _finish_slot(self, slot: int, reason: str) -> int:
+        rid = int(self._slot_rid[slot])
+        self.active[slot] = False
+        self._slot_rid[slot] = -1
+        self.scheduler.finish(rid, reason)
+        return rid
+
+    @torch.inference_mode()
+    def step(self) -> list[int]:
+        """Admit what fits, then advance every active slot one token.
+        Returns the rids that finished this step."""
+        finished = self._admit()
+        if not self.active.any():
+            return finished
+        t0 = time.monotonic()
+        logits, self.cache, _ = T.forward(
+            self.params, self.cfg, self._tensor(self.last_token)[:, None],
+            positions=self._tensor(self.positions)[:, None], cache=self.cache,
+        )
+        nxt = self._sample(logits[:, -1], self.positions)
+        active_slots = np.flatnonzero(self.active)
+        self.scheduler.note_decode(len(active_slots), time.monotonic() - t0)
+        for slot in active_slots:
+            self.positions[slot] += 1
+            tok = int(nxt[slot])
+            rid_s = int(self._slot_rid[slot])
+            self.scheduler.requests[rid_s].tokens.append(tok)
+            self._stream.append((rid_s, tok))
+            self.last_token[slot] = tok
+            rid = self._maybe_finish(slot, tok)
+            if rid is not None:
+                finished.append(rid)
+        return finished
+
+    def generate(self, prompts: list[list[int]], max_new: int | None = None,
+                 sampling: SamplingParams | None = None) -> dict[int, list[int]]:
+        """Drive a batch of prompts to completion."""
+        rids = [self.submit(p, max_new=max_new, sampling=sampling, admit=False)
+                for p in prompts]
+        per_req = max_new if max_new is not None else self.scfg.max_new
+        for _ in range(per_req * len(prompts) + len(prompts) + 1):
+            if not (self.active.any() or self.scheduler.n_queued):
+                break
+            self.step()
+        if self.active.any() or self.scheduler.n_queued:
+            raise RuntimeError("generate() exceeded its step budget")
+        return {r: list(self.scheduler.requests[r].tokens) for r in rids}
+
+    # ---- introspection --------------------------------------------------
+    def drain_stream(self) -> list[tuple[int, int]]:
+        """Pop every ``(rid, token)`` emitted since the last drain."""
+        out = list(self._stream)
+        self._stream.clear()
+        return out
+
+    @torch.inference_mode()
+    def peek_logits(self) -> np.ndarray:
+        """(n_slots, V) next-token logits for the current state, without
+        advancing it."""
+        logits, _, _ = T.forward(
+            self.params, self.cfg, self._tensor(self.last_token)[:, None],
+            positions=self._tensor(self.positions)[:, None], cache=self.cache,
+        )
+        return logits[:, -1].to(torch.float32).cpu().numpy()
+
+    def stats(self) -> dict:
+        """Scheduler counters: queue depth, per-phase tok/s, TTFT/latency."""
+        return self.scheduler.stats()
