@@ -1,1 +1,3 @@
-"""Quantizers, packed serving weights and the linear-layer funnel."""
+"""The paper's packing arithmetic (``packing``, ``correction``,
+``addpack``), quantizers, packed serving weights and the linear-layer
+funnel."""

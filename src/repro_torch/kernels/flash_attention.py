@@ -1,0 +1,114 @@
+"""Causal flash-attention forward: wrapper of ``csrc/flash_attention.cu``.
+
+Counterpart of the reference's ``repro.kernels.flash_attention``: q, k, v
+(B, H, S, hd) with the same H for all three (no grouped heads inside the
+kernel) -> (B, H, S, hd) in q's dtype.  The kernel's arithmetic, which the
+plain version repeats: q, k and v are upcast to f32, q is multiplied by
+``hd**-0.5`` before the product, keys past the query are masked with
+``-1e30`` (not ``-inf``), the softmax runs online over key tiles with the
+tiles past the diagonal skipped, and the sum is divided by
+``max(l, 1e-30)``.  ``bq``/``bk`` are the reference's tiling contract
+(``S % bq == S % bk == bq % bk == 0``); the CUDA kernel picks its own
+tiles.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor runs
+:func:`plain_flash_attention`, which is the only reason it ever does.
+:func:`ref_attention` is the reference's oracle, which runs its products
+in the input dtype before it upcasts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from ._launch import require
+from .ops import pin_full_f32
+
+__all__ = ["flash_attention", "plain_flash_attention", "ref_attention", "NEG_INF"]
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)          # the CUDA kernel's instantiations
+_SCORE_BYTES = 1 << 30          # plain version: f32 scores held at once
+
+_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p]
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int, bk: int) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            "flash_attention wants q, k, v of one shape (B, H, S, hd), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    s = q.shape[2]
+    if bq <= 0 or bk <= 0 or s % bq or s % bk or bq % bk:
+        raise ValueError(f"need S % bq == S % bk == bq % bk == 0, got S={s} bq={bq} bk={bk}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"q, k, v must share one dtype of float32 or bfloat16, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+
+
+def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's arithmetic (see the module
+    docstring), one softmax over all keys instead of tiles, run over
+    groups of heads so that at most ``_SCORE_BYTES`` of scores exist."""
+    if q.is_cuda:
+        pin_full_f32()
+    b, h, s, hd = q.shape
+    scale = hd**-0.5
+    qf, kf, vf = (t.reshape(b * h, s, hd) for t in (q, k, v))
+    out = torch.empty((b * h, s, hd), dtype=q.dtype, device=q.device)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    step = max(1, _SCORE_BYTES // (4 * s * s))
+    for i in range(0, b * h, step):
+        sl = slice(i, i + step)
+        scores = (qf[sl].float() * scale) @ kf[sl].float().transpose(1, 2)
+        scores = torch.where(causal, scores, NEG_INF)
+        p = torch.exp(scores - scores.amax(-1, keepdim=True))
+        acc = p @ vf[sl].float()
+        out[sl] = (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    return out.reshape(b, h, s, hd)
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The reference's causal attention oracle: products in the input
+    dtype, softmax in f32."""
+    s, hd = q.shape[2], q.shape[3]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * hd**-0.5
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bq: int = 256, bk: int = 256) -> torch.Tensor:
+    """Causal attention.  q, k, v: (B, H, S, hd) -> (B, H, S, hd)."""
+    _check(q, k, v, bq, bk)
+    if not q.is_cuda:
+        return plain_flash_attention(q, k, v)
+    dev = q.device
+    b, h, s, hd = q.shape
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes hd in {_HEAD_DIMS}, got {hd}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        require(t, name, q.dtype, dev, 4)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = build.library("flash_attention").flash_attention_launch
+    fn.argtypes, fn.restype = _argtypes, ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, s, hd,
+             _DTYPES[q.dtype], hd**-0.5, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -50,6 +50,7 @@ __all__ = [
     "packed_tile_matmul_prepacked",
     "ref_packed_matmul",
     "ref_packed_matmul_prepacked",
+    "ref_quantized_matmul",
     "exact_int_matmul_fits_f32",
     "pack_int4_weights",
     "unpack_int4_weights",
@@ -460,6 +461,11 @@ def ref_packed_matmul_prepacked(
         )
     x_u = _pad_cols(x_u.to(torch.int32), pad)
     return packed_tile_matmul_prepacked(x_u, packed.words, packed.wsc, spec)
+
+
+def ref_quantized_matmul(x_u: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """The mathematically exact unsigned×signed integer matmul (int32)."""
+    return int_dot(x_u.to(torch.int32), w_s.to(torch.int32))
 
 
 def exact_int_matmul_fits_f32(k: int, max_a: int, max_w: int) -> bool:
