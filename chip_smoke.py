@@ -34,11 +34,15 @@ anything in it fails:
    oracle and ``torch.sum``; then the reference tests' shapes (odd T,
    several N, an out-of-range case against the plain version only) and
    the kernel timed beside ``torch.sum``;
-8. ``flash_attention`` at qwen1.5-110b's attention width (B 1, H 64 from
-   8 KV heads, hd 128, S 4096, bf16; launch count zeroed just before,
-   read just after) against its plain version, then the reference tests'
-   f32 shapes, and the kernel timed beside
-   ``scaled_dot_product_attention``.
+8. ``flash_attention`` on its two routes, each path with the launch counts
+   zeroed just before and read just after: bf16 at qwen1.5-110b's
+   attention width (B 1, H 64 from 8 KV heads, hd 128, S 4096) through
+   the tensor-core kernel, and f32 (B 1, H 8, S 4096, hd 128) through the
+   CUDA-core kernel; each against its plain version (bf16 also against
+   the tensor-core emulation) there, at the reference tests' shapes, at
+   hd 64 and at ragged S; then both timed beside
+   ``scaled_dot_product_attention`` and their bounds, and the bf16 kernel
+   at 8 heads with hd 64 and 128.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -78,6 +82,8 @@ ATTN_SEQ = 4096
 # bf16 outputs, compared in f32, are rounded once each, so they may also
 # sit one bf16 step apart (rtol 2**-7, bf16's 8-bit significand)
 ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2**-7)}
+# phase 8's kernels line: the bf16 route (tensor cores) and the f32 route
+ROUTE_NAMES = {"bfloat16": "flash_attention", "float32": "flash_attention_f32"}
 L2_BYTES = 50 * 2**20
 SLICE_N = 16384  # plain versions run in column slices to bound their memory
 
@@ -109,6 +115,14 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def zero_counts(K) -> None:
+    """Every wrapper's launch count, and flash_attention's per route, to 0."""
+    for f in K.WRAPPERS.values():
+        f.launches = 0
+    routes = K.flash_attention.route_launches
+    routes.update(dict.fromkeys(routes, 0))
 
 
 def bound(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
@@ -400,8 +414,7 @@ def snn_addpack(torch, K, A, checks: list) -> dict:
                       dtype=torch.float32)  # int4 weights
     spikes = (torch.rand((SNN_STEPS, SNN_IN), generator=gen, device=dev) < 0.15).float()
     torch.cuda.synchronize()
-    for f in K.WRAPPERS.values():
-        f.launches = 0
+    zero_counts(K)
     t0 = time.perf_counter()
     drive = spikes @ w  # exact in f32 (TF32 off): |drive| <= 512 * 8
     terms = drive.reshape(SNN_STEPS, 2, n).to(torch.int32)  # lane 0: first half
@@ -471,11 +484,30 @@ def attn_err(torch, got, want, dtype: str) -> tuple[float, bool]:
     return float(diff.max()), ok
 
 
+def attention_path(torch, K, F, args, route: str) -> tuple:
+    """One ``flash_attention`` call with every launch count zeroed just
+    before and read just after; fails unless ``route``'s kernel launched."""
+    torch.cuda.synchronize()
+    zero_counts(K)
+    t0 = time.perf_counter()
+    out = K.flash_attention(*args)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in K.WRAPPERS.items()}
+    routes = dict(F.flash_attention.route_launches)
+    if routes[route] < 1:
+        raise RuntimeError(f"{route} never launched on its attention path ({routes})")
+    return out, path_s, launches, routes
+
+
 def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
-    """Causal attention at qwen1.5-110b's width through the flash kernel
-    (launch count zeroed just before, read just after), K/V expanded from
-    the config's KV heads as the model's attention does; then the reference
-    tests' shapes, and the timings."""
+    """Causal attention at qwen1.5-110b's width through the bf16 route (the
+    tensor-core kernel), K/V expanded from the config's KV heads as the
+    model's attention does, then through the f32 route (the CUDA-core
+    kernel) at 8 heads; each path with the launch counts zeroed just before
+    and read just after.  Then the checks against the plain version and,
+    for bf16, the tensor-core emulation, at the reference tests' shapes and
+    ragged S; then the timings."""
     cfg = P.get_config("qwen1.5-110b")
     h, kv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.hd, ATTN_SEQ
     dev = torch.device("cuda")
@@ -483,49 +515,82 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
     q = torch.randn((1, s, h, hd), generator=gen, device=dev, dtype=torch.bfloat16)
     k = torch.randn((1, s, kv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
     v = torch.randn((1, s, kv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    for f in K.WRAPPERS.values():
-        f.launches = 0
-    t0 = time.perf_counter()
     qh = q.transpose(1, 2).contiguous()  # (B, H, S, hd)
     kh = P.repeat_kv(k, h // kv).transpose(1, 2).contiguous()
     vh = P.repeat_kv(v, h // kv).transpose(1, 2).contiguous()
-    out = K.flash_attention(qh, kh, vh)
-    torch.cuda.synchronize()
-    path_s = time.perf_counter() - t0
-    launches = {name: f.launches for name, f in K.WRAPPERS.items()}
-    if launches["flash_attention"] < 1:
-        raise RuntimeError("flash_attention never launched on the attention path")
+    out, path_s, launches, routes = attention_path(torch, K, F, (qh, kh, vh),
+                                                   "flash_attention_sm90")
     where = f"B=1 H={h} S={s} hd={hd} bf16"
-    err, ok = attn_err(torch, out, F.plain_flash_attention(qh, kh, vh), "bfloat16")
-    attn_checks.append(("flash_attention", where, err, ok))
-    log(f"attention {where} (K/V from {kv} heads): {path_s:.3f} s, max abs err "
-        f"{err:.3g} vs plain, launches {launches}")
+    log(f"attention {where} (K/V from {kv} heads): {path_s:.3f} s, launches "
+        f"{launches}, routes {routes}")
+    x32 = [torch.randn((1, kv, s, hd), generator=gen, device=dev) for _ in range(3)]
+    out32, path32_s, _, routes32 = attention_path(torch, K, F, x32, "flash_attention")
+    where32 = f"B=1 H={kv} S={s} hd={hd} float32"
+    log(f"attention {where32}: {path32_s:.3f} s, routes {routes32}")
+
+    def check(got, args, dtype: str, at: str) -> None:
+        err, ok = attn_err(torch, got, F.plain_flash_attention(*args), dtype)
+        attn_checks.append((ROUTE_NAMES[dtype], at + " vs plain", err, ok))
+        if dtype == "bfloat16":
+            err, ok = attn_err(torch, got, F.emulate_tensor_core_flash(*args), dtype)
+            attn_checks.append((ROUTE_NAMES[dtype], at + " vs emulation", err, ok))
+
+    check(out, (qh, kh, vh), "bfloat16", where)
+    check(out32, x32, "float32", where32)
+    del out, out32
+    # the reference tests' shapes, then bf16 at hd 64 and ragged S (bq, bk
+    # dividing S, as the wrapper's contract asks; the kernels ignore them)
     gen = torch.Generator(device=dev).manual_seed(5)
     for b, hh, ss, d, bq, bk, dt in ((1, 2, 512, 64, 256, 128, torch.float32),
                                      (2, 1, 256, 128, 128, 128, torch.float32),
                                      (1, 3, 96, 64, 32, 32, torch.float32),
-                                     (1, 4, 1024, 64, 256, 256, torch.bfloat16)):
+                                     (1, 4, 1024, 64, 256, 256, torch.bfloat16),
+                                     (1, 8, 4096, 64, 256, 256, torch.bfloat16),
+                                     (1, 3, 96, 128, 32, 32, torch.bfloat16),
+                                     (1, 2, 4160, 128, 64, 64, torch.bfloat16)):
         x = [torch.randn((b, hh, ss, d), generator=gen, device=dev, dtype=dt)
              for _ in range(3)]
         name = str(dt).removeprefix("torch.")
-        err_s, ok_s = attn_err(torch, K.flash_attention(*x, bq=bq, bk=bk),
-                               F.plain_flash_attention(*x), name)
-        attn_checks.append(("flash_attention", f"B={b} H={hh} S={ss} hd={d} {name}",
-                            err_s, ok_s))
-    ms = cuda_ms(torch, lambda: K.flash_attention(qh, kh, vh), 5)
-    plain_ms = cuda_ms(torch, lambda: F.plain_flash_attention(qh, kh, vh), 2)
+        check(K.flash_attention(*x, bq=bq, bk=bk), x, name,
+              f"B={b} H={hh} S={ss} hd={d} {name}")
+    torch.cuda.synchronize()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(torch, lambda: sdpa(qh, kh, vh, is_causal=True), 20)
-    ops = 2 * 2 * h * (s * s / 2) * hd  # QK^T and PV over the causal half
-    b_ms, b_by = bound(4 * qh.numel() * qh.element_size(), ops, CUDA_CORE_OPS_PER_S)
-    tc_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
-    log(f"time flash_attention {where}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by} "
-        f"on the f32 CUDA cores, {tc_ms:.4f} ms on bf16 tensor cores; plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms)")
-    return dict(launches=launches["flash_attention"], path_s=path_s, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_tensor_core_ms=tc_ms, at=where)
+    rows = {}
+    for name, args, path, iters, rate in (
+            ("flash_attention", (qh, kh, vh), (path_s, launches, routes), 20,
+             BF16_TENSOR_OPS_PER_S),
+            ("flash_attention_f32", x32, (path32_s, None, routes32), 10,
+             CUDA_CORE_OPS_PER_S)):
+        bb, hh, ss, d = args[0].shape
+        ops = 2 * 2 * bb * hh * (ss * ss / 2) * d  # QK^T and PV over the causal half
+        b_ms, b_by = bound(4 * args[0].numel() * args[0].element_size(), ops, rate)
+        rows[name] = dict(
+            ms=cuda_ms(torch, lambda: K.flash_attention(*args), iters),
+            plain_ms=cuda_ms(torch, lambda: F.plain_flash_attention(*args), 2),
+            library_ms=cuda_ms(torch, lambda: sdpa(*args, is_causal=True), iters),
+            bound_ms=b_ms, bound_by=b_by, path_s=path[0], routes=path[2],
+            launches=path[2][F.ROUTES[args[0].dtype]],
+            at=where if name == "flash_attention" else where32)
+        if name == "flash_attention":  # it issues P V twice (P_hi, P_lo): 1.5x
+            rows[name]["split_bound_ms"] = 1.5 * ops / rate * 1e3
+    # the bf16 kernel at 8 heads, hd 64 and 128: the same scores, half the
+    # products at hd 64, so the ratio shows what the per-score work weighs
+    for d in (64, 128):
+        x = [torch.randn((1, kv, s, d), generator=gen, device=dev, dtype=torch.bfloat16)
+             for _ in range(3)]
+        rows["flash_attention"][f"ms_H{kv}_hd{d}"] = cuda_ms(
+            torch, lambda: K.flash_attention(*x), 20)
+    for name, r in rows.items():
+        log(f"time {name} {r['at']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}"
+            + (f", {r['split_bound_ms']:.4f} ms for the split's own operations"
+               if "split_bound_ms" in r else "")
+            + f"; plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms)")
+    r = rows["flash_attention"]
+    log(f"time flash_attention B=1 H={kv} S={s} bf16: hd 64 {r[f'ms_H{kv}_hd64']:.4f} ms, "
+        f"hd 128 {r[f'ms_H{kv}_hd128']:.4f} ms")
+    return rows
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -610,8 +675,7 @@ def main(argv: list[str] | None = None) -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     # phase 4: the main path at full width, launch counts zeroed just before
-    for f in K.WRAPPERS.values():
-        f.launches = 0
+    zero_counts(K)
     t0 = time.perf_counter()
     serving_out = serve_full_width(torch, K, P, card)
     launches = {k: f.launches for k, f in K.WRAPPERS.items()}
@@ -657,13 +721,16 @@ def main(argv: list[str] | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 8: flash attention at qwen1.5-110b's width, then its checks
+    # phase 8: flash attention, bf16 at qwen1.5-110b's width and f32, then
+    # its checks
     attn_checks: list = []
     attn = flash_qwen(torch, K, F, P, attn_checks)
     for name, where, err, ok in attn_checks:
         log(f"{'ok' if ok else 'MISMATCH'} {name} {where}: max abs err {err:.3g}")
-    if not all(c[3] for c in attn_checks):
-        raise RuntimeError(f"flash_attention outside the tolerance {ATTN_TOL}")
+    bad = [c for c in attn_checks if not c[3]]
+    if bad:
+        raise RuntimeError(f"{len(bad)} of {len(attn_checks)} flash_attention checks "
+                           f"outside the tolerance {ATTN_TOL}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -687,12 +754,20 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": f"M={r['M']} K={r['K']} N={r['N']}",
         })
+    def attn_max(name: str, against: str) -> float:
+        return max(c[2] for c in attn_checks if c[0] == name and c[1].endswith(against))
+
     for name, r, err, source, replaces in (
             ("addpack_accumulate", snn,
              max(c[2] for c in checks if c[0] == "addpack_accumulate"),
              "src/repro_torch/kernels/csrc/addpack_acc.cu",
              "src/repro/kernels/addpack_acc.py:66"),
-            ("flash_attention", attn, max(c[2] for c in attn_checks),
+            ("flash_attention", attn["flash_attention"],
+             attn_max("flash_attention", "vs plain"),
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:72"),
+            ("flash_attention_f32", attn["flash_attention_f32"],
+             attn_max("flash_attention_f32", "vs plain"),
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:72")):
         kernels.append({
@@ -701,6 +776,8 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": r["at"],
         })
+    kernels[-2].update(split_bound_ms=attn["flash_attention"]["split_bound_ms"],
+                       max_abs_err_emulation=attn_max("flash_attention", "vs emulation"))
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps({

@@ -1,38 +1,38 @@
-// Causal flash-attention forward for Hopper (sm_90a): q, k, v (B*H, S, hd) in
-// f32 or bf16 -> out (B*H, S, hd) in the same dtype, hd 64 or 128.
+// Causal flash-attention forward for Hopper (sm_90a) on the CUDA cores: q, k,
+// v (B*H, S, hd) f32 -> out (B*H, S, hd) f32, hd 64 or 128.  bf16 inputs go
+// to the tensor-core kernel, flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// (Pallas body _kernel), and computes what it computes: q, k and v upcast to
-// f32, q multiplied by scale = hd**-0.5 before the product, keys past the
-// query masked with -1e30 (not -inf), the softmax carried online over key
-// tiles as (running max m, denominator l, accumulator), key tiles past the
-// diagonal skipped, and the output acc / max(l, 1e-30) rounded to the
-// input dtype.  Exponentials are expf (the build has no fast math).
+// (Pallas body _kernel) for f32 inputs, and computes what it computes: q
+// multiplied by scale = hd**-0.5 before the product, keys past the query
+// masked with -1e30 (not -inf), the softmax carried online over key tiles as
+// (running max m, denominator l, accumulator), key tiles past the diagonal
+// skipped, and the output acc / max(l, 1e-30).  Exponentials are expf (the
+// build has no fast math).
 //
-// What bounds it on this card: every product runs in f32 on the CUDA cores
-// (no tensor cores yet), 4 * S*S/2 * hd operations per head against a few
+// What bounds it on this card: every product runs in f32 on the CUDA cores,
+// 4 * S*S/2 * hd operations per head against a few
 // bytes per element of q, k, v and out, so it is bound by operations, at the
 // 67 TFLOP/s f32 rate.
 //
 // What the design does about it: one block of 256 threads per (head, 64
 // query rows), tiles visited longest first.  The scaled Q tile stays in
 // shared memory for the whole block; each 64-key K and V tile is staged
-// through shared memory in f32 once and read by all 256 threads.  A thread
+// through shared memory once and read by all 256 threads.  A thread
 // owns 4 query rows: 4 x 4 scores (keys c, c+16, c+32, c+48) for S = Q K^T,
 // and 4 rows x 4*hd/64 output columns of the accumulator, in registers.  The
 // row max and sum are reduced over the 16 threads of a row by warp shuffles.
 // P is written transposed into the K tile's buffer (K is dead by then) and
 // read as one 16-byte broadcast per key for P V.  Reads are 16-byte vectors
 // laid out so that a warp touches the fewest shared-memory wavefronts (the K
-// tile's rows are padded by 4 floats).  Not yet used: tensor cores (wgmma on
-// bf16), TMA, a pipelined K/V load, split-K for long rows.
+// tile's rows are padded by 4 floats).  Not yet used: tensor cores (keeping
+// f32 inputs within atol 1e-5 on bf16 wgmma needs each operand split into
+// three bf16 terms), a pipelined K/V load, split-K for long rows.
 //
 // Contract checked by the Python wrapper: q, k, v, out contiguous, 16-byte
-// aligned, one dtype, on the current device; hd in {64, 128}.
+// aligned, f32, on the current device; hd in {64, 128}.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
@@ -42,32 +42,9 @@ constexpr int kThreads = 256;        // 16 row groups x 16 column lanes
 constexpr int kPStride = kBQ + 4;    // P^T row stride (floats)
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-struct Io;
-template <>
-struct Io<float> {
-  __device__ __forceinline__ static float4 load4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ __forceinline__ static void store4(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-template <>
-struct Io<__nv_bfloat16> {
-  __device__ __forceinline__ static float4 load4(const __nv_bfloat16* p) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));  // 4 bf16, low half first
-    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
-  }
-  __device__ __forceinline__ static uint32_t pack2(float a, float b) {
-    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
-           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
-  }
-  __device__ __forceinline__ static void store4(__nv_bfloat16* p, float4 v) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
-  }
-};
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -104,10 +81,10 @@ constexpr int smem_bytes() {
   return (kBQ * HD + kBK * (HD + 4) + kBK * HD) * (int)sizeof(float);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int BH, int S,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int BH, int S,
                        float scale) {
   constexpr int KS = HD + 4;   // K tile row stride (floats)
   constexpr int D4 = HD / 4;   // float4 groups per row
@@ -131,7 +108,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int pos = qt * kBQ + row;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (pos < S) {
-      x = Io<T>::load4(q + base + (size_t)pos * HD + d);
+      x = ldg4(q + base + (size_t)pos * HD + d);
       x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
     }
     *reinterpret_cast<float4*>(Qs + row * HD + d) = x;
@@ -154,8 +131,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int pos = kt * kBK + row;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (pos < S) {
-        kx = Io<T>::load4(k + base + (size_t)pos * HD + d);
-        vx = Io<T>::load4(v + base + (size_t)pos * HD + d);
+        kx = ldg4(k + base + (size_t)pos * HD + d);
+        vx = ldg4(v + base + (size_t)pos * HD + d);
       }
       *reinterpret_cast<float4*>(Ks + row * KS + d) = kx;
       *reinterpret_cast<float4*>(Vs + row * HD + d) = vx;
@@ -235,16 +212,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < JV; ++jj) {
       const float4 a = acc[i][jj];
-      Io<T>::store4(out + base + (size_t)qpos * HD + 4 * c + 64 * jj,
-                    make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom));
+      *reinterpret_cast<float4*>(out + base + (size_t)qpos * HD + 4 * c + 64 * jj) =
+          make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int BH, int S,
            float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, HD>;
+  auto kernel = flash_attention_kernel<HD>;
   constexpr int smem = smem_bytes<HD>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -252,23 +229,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int S
   const long long blocks = (long long)BH * ((S + kBQ - 1) / kBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), BH, S, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), BH, S, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int BH, int S, int hd, int dtype,
-                                      float scale, void* stream) {
+                                      void* out, int BH, int S, int hd, float scale,
+                                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 64) return launch<float, 64>(q, k, v, out, BH, S, scale, s);
-  if (dtype == 0 && hd == 128) return launch<float, 128>(q, k, v, out, BH, S, scale, s);
-  if (dtype == 1 && hd == 64) return launch<__nv_bfloat16, 64>(q, k, v, out, BH, S, scale, s);
-  if (dtype == 1 && hd == 128) return launch<__nv_bfloat16, 128>(q, k, v, out, BH, S, scale, s);
+  if (hd == 64) return launch<64>(q, k, v, out, BH, S, scale, s);
+  if (hd == 128) return launch<128>(q, k, v, out, BH, S, scale, s);
   return (int)cudaErrorInvalidValue;
 }
