@@ -10,19 +10,25 @@ anything in it fails:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for sm_90a;
 3. each CUDA kernel against its plain PyTorch version on the card, on
-   seeded inputs (several plans, both activation forms, ragged M/N/K, and
-   the main path's shapes), bit-exact (max abs diff 0); then each kernel
+   seeded inputs (several plans, both activation forms, ragged M/N/K, the
+   M > 16 kernels at M 17, 33, 63 and with K split over blocks, and the
+   main path's shapes), bit-exact (max abs diff 0); then each kernel
    timed with CUDA events at the main path's decode (M=4) and prefill
-   (M=64) shapes, beside its plain version, its bound and a library call;
+   (M=64) shapes, beside its plain version, its bound and a library call,
+   and at M=64 beside the M <= 16 kernel;
 4. the main path: qwen1.5-110b at full width (depth cut to 4 layers,
    random seeded weights on the card) served greedily by the fixed-slot
    ``Engine`` in native, int4_packed, dsp_tuned (plan
-   a4w4-p10-n32-mr+full-c2) and dsp_packed; the kernels' launch counters
-   are zeroed just before and read just after, and every kernel must
-   have launched; logits must be finite;
+   a4w4-p10-n32-mr+full-c2) and dsp_packed, then each packed mode again
+   with ``fuse_projections="all"``, whose greedy tokens must equal the
+   unfused run's; the kernels' launch counters are zeroed just before and
+   read just after, and every kernel must have launched (the M <= 16
+   kernels in decode, the M > 16 ones in 64-row prefill chunks); logits
+   must be finite;
 5. whole-path agreement at the smoke config: the kernel engine and the
    plain-version engine emit identical greedy tokens in int4_packed,
-   dsp_tuned (mr plan) and dsp_packed;
+   dsp_tuned (mr plan) and dsp_packed, with prefill chunks of 8 rows and
+   of 32 (the M > 16 kernels);
 6. the paper's arithmetic on the card: ``scheme_stats`` of the five
    schemes on INT4 (delta 3), INT4 overpacked (delta -2) and the six
    4x5-bit products (Tables I/II), equal to the same calls on the CPU, and
@@ -42,7 +48,8 @@ anything in it fails:
    the tensor-core emulation) there, at the reference tests' shapes, at
    hd 64 and at ragged S; then both timed beside
    ``scaled_dot_product_attention`` and their bounds, and the bf16 kernel
-   at 8 heads with hd 64 and 128.
+   at 8 heads with hd 64 and 128; both routes also checked at hd 16 and
+   120, which the kernels run at their hd 64 and 128 instantiations.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -68,11 +75,18 @@ MAIN_PLAN = "a4w4-p10-n32-mr+full-c2"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+# 32-bit integer instructions: 64 results per clock per SM for IMAD and
+# for add/shift/logic each (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), on separate pipes;
+# 132 SMs at the 1,980 MHz boost clock
+IMAD_PER_S = 64 * 132 * 1.98e9
+INT_ALU_PER_S = 64 * 132 * 1.98e9
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 # main-path linear shapes (K, N) at full width: wq/wo, wk/wv, up/gate,
 # down, lm_head; decode runs M = n_slots = 4 rows, prefill 4 x 16 = 64
 SHAPES = [(8192, 8192), (8192, 1024), (8192, 49152), (49152, 8192), (8192, 152064)]
 HEADLINE = (4, 8192, 49152)  # the JSON line's shape: the up/gate decode GEMV
+HEADLINE_PREFILL = (64, 8192, 49152)  # ... and for the M > 16 kernels, prefill
 # phase 7: one SNN layer (examples/snn_addpack.py at a real layer size)
 SNN_IN, SNN_HALF, SNN_STEPS, SNN_THRESHOLD = 512, 524288, 64, 64
 # phase 8: attention at qwen1.5-110b's width, one 4096-token sequence
@@ -84,6 +98,7 @@ ATTN_SEQ = 4096
 ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2**-7)}
 # phase 8's kernels line: the bf16 route (tensor cores) and the f32 route
 ROUTE_NAMES = {"bfloat16": "flash_attention", "float32": "flash_attention_f32"}
+PACKED_MODES = ("int4_packed", "dsp_tuned", "dsp_packed")
 L2_BYTES = 50 * 2**20
 SLICE_N = 16384  # plain versions run in column slices to bound their memory
 
@@ -118,17 +133,52 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def zero_counts(K) -> None:
-    """Every wrapper's launch count, and flash_attention's per route, to 0."""
+    """Every wrapper's launch count, flash_attention's per route and the
+    matmuls' per kernel variant, to 0."""
     for f in K.WRAPPERS.values():
         f.launches = 0
-    routes = K.flash_attention.route_launches
-    routes.update(dict.fromkeys(routes, 0))
+    for counts in (K.flash_attention.route_launches, K.int4_matmul.variant_launches,
+                   K.packed_matmul.variant_launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def kernel_counts(K) -> dict:
+    """Launches per kernel: the single-kernel wrappers', and the matmuls'
+    per variant (the M <= 16 kernel under the wrapper's own name)."""
+    counts = {name: f.launches for name, f in K.WRAPPERS.items()
+              if name not in ("int4_matmul", "packed_matmul")}
+    counts.update(K.int4_matmul.variant_launches)
+    counts.update(K.packed_matmul.variant_launches)
+    return counts
 
 
 def bound(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def packed_bound(bytes_moved: float, m: int, k: int, n: int,
+                 spec) -> tuple[float, str, dict]:
+    """Bound of the pair-packed kernels: the bytes, or the 32-bit integer
+    work, whichever takes longer.  The work: one IMAD per packed pair and
+    output per column stream (twice with an mr correction, whose
+    contamination is a second product), at the IMAD rate; and the
+    extraction of every chunk's field, 3 integer operations (align and
+    round, arithmetic shift, accumulate), 3 more for the mr restore and 1
+    for a column's recombining shift, at the add/shift/logic rate.  The two
+    pipes issue side by side, so the slower one bounds.  Also returns each
+    term in ms."""
+    columns = spec.n_columns
+    macs = m * (k // 2) * n * columns * (2 if spec.uses_mr else 1)
+    fields = m * n * -(-k // spec.chunk) * columns
+    ext = fields * (3 + (3 if spec.uses_mr else 0) + (1 if columns > 1 else 0))
+    terms = dict(bytes_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+                 imad_ms=macs / IMAD_PER_S * 1e3, extract_ms=ext / INT_ALU_PER_S * 1e3)
+    t_ops = max(terms["imad_ms"], terms["extract_ms"])
+    if terms["bytes_ms"] >= t_ops:
+        return terms["bytes_ms"], "bytes", terms
+    return t_ops, "operations", terms
 
 
 def by_columns(torch, fn, n: int):
@@ -146,13 +196,17 @@ def max_diff(torch, got, want) -> int:
 
 def check_kernels(torch, K, ref, checks: list) -> None:
     """Bit-exactness of every kernel against its plain version on seeded
-    inputs: several plans, both activation forms, ragged M/N/K."""
+    inputs: several plans, both activation forms, ragged M/N/K; the M > 16
+    kernels also at ragged M (17, 33, 63), with K split over blocks, and
+    the M <= 16 kernels forced at M = 64.  Each check is named after the
+    kernel that ran it."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     plans = [ref.INT4_EXACT, ref.INT4_NAIVE, ref.INT4_MR_OVERPACKED,
              ref.spec_from_name(MAIN_PLAN), ref.spec_from_name("a4w4-p11-n16-full-c2"),
              ref.spec_from_name("a8w8-p11-n1-full-c4")]
-    shapes = [(5, 200, 300), (17, 130, 129), (64, 1000, 515), (4, 8192, 1024)]
+    shapes = [(5, 200, 300), (17, 130, 129), (64, 1000, 515), (4, 8192, 1024),
+              (33, 8192, 1024), (63, 4096, 520)]
     for spec in plans:
         for m, k, n in shapes:
             x_u = torch.randint(0, 1 << spec.bits_a, (m, k), generator=gen,
@@ -164,7 +218,8 @@ def check_kernels(torch, K, ref, checks: list) -> None:
             name = f"{spec.name()} M={m} K={k} N={n}"
             got = K.packed_matmul_prepacked(x_u, packed.words, packed.wsc, spec)
             want = K.packed_matmul_prepacked_plain(x_u, packed.words, packed.wsc, spec)
-            checks.append(("packed_matmul_prepacked", name + " int", max_diff(torch, got, want)))
+            checks.append(("packed_matmul_prepacked", name + " int",
+                           max_diff(torch, got, want)))
             xf = torch.randn((m, k), generator=gen, device=dev)
             zp = 1 << (spec.bits_a - 1)
             scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
@@ -172,15 +227,25 @@ def check_kernels(torch, K, ref, checks: list) -> None:
                                             x_scale=scale, x_zp=zp)
             want = K.packed_matmul_prepacked_plain(xf, packed.words, packed.wsc, spec,
                                                    x_scale=scale, x_zp=zp)
-            checks.append(("packed_matmul_prepacked", name + " fused", max_diff(torch, got, want)))
-            got = K.packed_matmul(x_u, w_s.to(torch.int8), spec)
-            want = K.packed_matmul_plain(x_u, w_s.to(torch.int8), spec)
-            checks.append(("packed_matmul", name, max_diff(torch, got, want)))
-    for m, k, n in [(5, 202, 300), (17, 130, 130), (64, 1024, 515), (4, 8192, 1024)]:
+            checks.append(("packed_matmul_prepacked", name + " fused",
+                           max_diff(torch, got, want)))
+            w8 = w_s.to(torch.int8)
+            want = K.packed_matmul_plain(x_u, w8, spec)
+            checks.append((K.packed_variant(m, spec), name,
+                           max_diff(torch, K.packed_matmul(x_u, w8, spec), want)))
+            if m == 64:
+                got = K.packed_kernels["packed_matmul"](x_u, w8, spec)
+                checks.append(("packed_matmul", name, max_diff(torch, got, want)))
+    for m, k, n in [(5, 202, 300), (17, 130, 130), (64, 1024, 515), (4, 8192, 1024),
+                    (17, 8192, 1024), (33, 1000, 520), (63, 49152, 1024), (64, 8192, 8192)]:
         x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         w = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
-        checks.append(("int4_matmul", f"M={m} K={k} N={n}",
-                       max_diff(torch, K.int4_matmul(x, w), K.int4_matmul_plain(x, w))))
+        want = K.int4_matmul_plain(x, w)
+        checks.append((K.int4_variant(m), f"M={m} K={k} N={n}",
+                       max_diff(torch, K.int4_matmul(x, w), want)))
+        if m == 64:
+            checks.append(("int4_matmul", f"M={m} K={k} N={n}",
+                           max_diff(torch, K.int4_kernels["int4_matmul"](x, w), want)))
     torch.cuda.synchronize()
 
 
@@ -202,7 +267,8 @@ def _copies(make, nbytes: int) -> list:
 
 def time_kernels(torch, K, ref, checks: list) -> list[dict]:
     """Each kernel at the main path's shapes: exactness against the plain
-    version, kernel / plain / library time, bound."""
+    version, kernel / plain / library time, bound; at M = 64 the M <= 16
+    kernel (the parent's) timed beside the M > 16 one (``parent_ms``)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     main = ref.spec_from_name(MAIN_PLAN)
@@ -218,11 +284,16 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
                                                device=dev, dtype=torch.uint8), k * n // 2)
             it = iter(range(10**9))
             ms = cuda_ms(torch, lambda: K.int4_matmul(xq, ws[next(it) % len(ws)]), 20)
+            parent_ms = None
+            if m > 16:
+                parent_ms = cuda_ms(torch, lambda: K.int4_kernels["int4_matmul"](
+                    xq, ws[next(it) % len(ws)]), 20)
             t0 = time.perf_counter()
             want = by_columns(torch, lambda a, b: K.int4_matmul_plain(xq, ws[0][:, a:b]), n)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            checks.append(("int4_matmul", f"main M={m} K={k} N={n}",
+            variant = K.int4_variant(m)
+            checks.append((variant, f"main M={m} K={k} N={n}",
                            max_diff(torch, K.int4_matmul(xq, ws[0]), want)))
             w8 = ref.unpack_int4_weights(ws[0])
             xpad = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - m)))  # _int_mm: M > 16
@@ -230,8 +301,9 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             del w8, want
             b_ms, b_by = bound(m * k + k * n / 2 + 4 * m * n, 2 * m * k * n,
                                INT8_TENSOR_OPS_PER_S)
-            rows.append(dict(kernel="int4_matmul", M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, library="torch._int_mm on unpacked int8"
+            rows.append(dict(kernel=variant, M=m, K=k, N=n, ms=ms, parent_ms=parent_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             library="torch._int_mm on unpacked int8"
                              + (" (M padded to 32)" if m < 32 else ""),
                              bound_ms=b_ms, bound_by=b_by))
             del ws
@@ -258,42 +330,49 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             del pw, want, got
             # needed bytes: x, scale, words (2 B/weight), the even lane of
             # wsc (2 B/weight; the odd lane is never read), out
-            macs = m * (k // 2) * n * main.n_columns * 2  # words + contamination
-            b_ms, b_by = bound(4 * m * k + 4 * m + 4 * k * n + 4 * m * n, 2 * macs,
-                               CUDA_CORE_OPS_PER_S)
+            b_ms, b_by, terms = packed_bound(4 * m * k + 4 * m + 4 * k * n + 4 * m * n,
+                                             m, k, n, main)
             rows.append(dict(kernel="packed_matmul_prepacked", plan=MAIN_PLAN, M=m, K=k,
-                             N=n, ms=ms, plain_ms=plain_ms, library_ms=None,
+                             N=n, ms=ms, parent_ms=None, plain_ms=plain_ms, library_ms=None,
                              library="none: the mr plan is not exact, no library "
-                             "call computes its arithmetic", bound_ms=b_ms, bound_by=b_by))
+                             "call computes its arithmetic", bound_ms=b_ms, bound_by=b_by,
+                             bound_terms=terms))
             # packed_matmul: INT4_EXACT, unsigned ints x int8 weights
             xu = torch.randint(0, 16, (m, k), generator=gen, device=dev, dtype=torch.int32)
             w8s = _copies(lambda: torch.randint(-8, 8, (k, n), generator=gen, device=dev,
                                                 dtype=torch.int8), k * n)
             it = iter(range(10**9))
             ms = cuda_ms(torch, lambda: K.packed_matmul(xu, w8s[next(it) % len(w8s)], exact), 10)
+            parent_ms = None
+            if m > 16:
+                parent_ms = cuda_ms(torch, lambda: K.packed_kernels["packed_matmul"](
+                    xu, w8s[next(it) % len(w8s)], exact), 10)
             t0 = time.perf_counter()
             want = by_columns(torch, lambda a, b: K.packed_matmul_plain(
                 xu, w8s[0][:, a:b], exact), n)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            checks.append(("packed_matmul", f"main {exact.name()} M={m} K={k} N={n}",
+            variant = K.packed_variant(m, exact)
+            checks.append((variant, f"main {exact.name()} M={m} K={k} N={n}",
                            max_diff(torch, K.packed_matmul(xu, w8s[0], exact), want)))
             xpad = torch.nn.functional.pad(xu.to(torch.int8), (0, 0, 0, max(0, 32 - m)))
             lib_ms = library_ms(torch, lambda: torch._int_mm(xpad, w8s[0]))
             del w8s, want
-            macs = m * (k // 2) * n * exact.n_columns
-            b_ms, b_by = bound(4 * m * k + k * n + 4 * m * n, 2 * macs, CUDA_CORE_OPS_PER_S)
-            rows.append(dict(kernel="packed_matmul", plan=exact.name(), M=m, K=k, N=n,
-                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            b_ms, b_by, terms = packed_bound(4 * m * k + k * n + 4 * m * n, m, k, n, exact)
+            rows.append(dict(kernel=variant, plan=exact.name(), M=m, K=k, N=n,
+                             ms=ms, parent_ms=parent_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms,
                              library="torch._int_mm (the plan is exact)"
                              + (" (M padded to 32)" if m < 32 else ""),
-                             bound_ms=b_ms, bound_by=b_by))
+                             bound_ms=b_ms, bound_by=b_by, bound_terms=terms))
             gc.collect()
             torch.cuda.empty_cache()
             for r in rows[-3:]:
                 log(f"time {r['kernel']:24s} M={m:3d} K={k:6d} N={n:6d}: "
                     f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-                    f"plain {r['plain_ms']:.2f} ms, library "
+                    + (f"the M <= 16 kernel {r['parent_ms']:.4f} ms, "
+                       if r["parent_ms"] is not None else "")
+                    + f"plain {r['plain_ms']:.2f} ms, library "
                     f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')} ms)")
     return rows
 
@@ -302,7 +381,12 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
 
 
 def serve_full_width(torch, K, P, card: str):
-    """The main path at full width, one engine per mode built and freed."""
+    """The main path at full width, one engine per mode built and freed;
+    then each packed mode again with ``fuse_projections="all"``, whose
+    greedy tokens must equal the unfused run's.  The fused runs get the
+    float tree fused once here (the engine's own fusion then finds nothing
+    left to join) with the unfused tree freed first, so that dsp_tuned's
+    build keeps the unfused run's peak memory."""
     cfg = P.dataclasses.replace(P.get_config("qwen1.5-110b"), n_layers=4)
     params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
@@ -310,16 +394,19 @@ def serve_full_width(torch, K, P, card: str):
     prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in (5, 17, 30)]
     plan = P.ref.spec_from_name(MAIN_PLAN)
-    results = {}
+    results, tokens = {}, {}
     torch.cuda.reset_peak_memory_stats()
-    for mode in ("native", "int4_packed", "dsp_tuned", "dsp_packed"):
-        before = {k: f.launches for k, f in K.WRAPPERS.items()}
+
+    def serve(mode: str, params, fuse: str) -> None:
+        key = mode if fuse == "none" else f"{mode}+fuse"
+        before = kernel_counts(K)
         t0 = time.perf_counter()
-        table = ({p: plan for p, _ in P.iter_packable_weights(params)}
-                 if mode == "dsp_tuned" else None)
         engine = P.Engine(cfg, params, P.ServeConfig(
             n_slots=4, max_len=64, prefill_chunk=16, max_new=8, quant_mode=mode,
-            eos_token=-1, device="cuda"), plan_table=table)  # no EOS: full budgets
+            fuse_projections=fuse, eos_token=-1, device="cuda"),  # no EOS: full budgets
+            # dsp_tuned: the main plan on every path of the tree served
+            plan_table={p: plan for p, _ in P.iter_packable_weights(params)}
+            if mode == "dsp_tuned" else None)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         warm = engine.generate([prompts[0][:4]], max_new=2)  # warm-up request
@@ -333,29 +420,44 @@ def serve_full_width(torch, K, P, card: str):
             step_ms.append((time.perf_counter() - t0) * 1e3)
         logits = torch.from_numpy(engine.peek_logits())
         if not bool(torch.isfinite(logits).all()):
-            raise RuntimeError(f"{mode}: non-finite logits")
-        lengths = [len(sch.requests[r].tokens) for r in rids]
+            raise RuntimeError(f"{key}: non-finite logits")
+        tokens[key] = [list(engine.outputs[r]) for r in rids]
+        lengths = [len(t) for t in tokens[key]]
         if lengths != [8, 8, 8] or len(next(iter(warm.values()))) != 2:
-            raise RuntimeError(f"{mode}: expected 3 x 8 tokens, got {lengths}")
+            raise RuntimeError(f"{key}: expected 3 x 8 tokens, got {lengths}")
+        after = kernel_counts(K)
         decode = sorted(step_ms[1:])  # the first step also admits (prefill)
-        results[mode] = dict(
+        results[key] = dict(
             build_s=build_s,
             prefill_tok_s=(sch.prefill_tokens - tok0) / (sch.prefill_time_s - time0),
             decode_ms_per_step=decode[len(decode) // 2],
             decode_ms_steps=decode,  # every decode step, sorted: the spread
-            launches={k: f.launches - before[k] for k, f in K.WRAPPERS.items()},
+            launches={k: after[k] - before[k] for k in after},
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         )
-        log(f"serve {mode:12s} on {card}: build {build_s:.1f} s, prefill "
-            f"{results[mode]['prefill_tok_s']:.1f} tok/s, decode "
-            f"{results[mode]['decode_ms_per_step']:.2f} ms/step (median), "
-            f"launches {results[mode]['launches']}, peak "
-            f"{results[mode]['peak_gb']:.1f} GB")
+        log(f"serve {key:18s} on {card}: build {build_s:.1f} s, prefill "
+            f"{results[key]['prefill_tok_s']:.1f} tok/s, decode "
+            f"{results[key]['decode_ms_per_step']:.2f} ms/step (median), "
+            f"launches {results[key]['launches']}, peak "
+            f"{results[key]['peak_gb']:.1f} GB")
         del engine, logits
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+
+    for mode in ("native",) + PACKED_MODES:
+        serve(mode, params, "none")
+    fused = P.fuse_projection_weights(params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode in PACKED_MODES:
+        serve(mode, fused, "all")
+        if tokens[f"{mode}+fuse"] != tokens[mode]:
+            raise RuntimeError(f"{mode}: fused tokens {tokens[mode + '+fuse']} != "
+                               f"unfused {tokens[mode]}")
+        log(f"fused {mode}: greedy tokens identical to the unfused engine's")
+    del fused
     gc.collect()
     torch.cuda.empty_cache()
     return results
@@ -539,7 +641,9 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
     check(out32, x32, "float32", where32)
     del out, out32
     # the reference tests' shapes, then bf16 at hd 64 and ragged S (bq, bk
-    # dividing S, as the wrapper's contract asks; the kernels ignore them)
+    # dividing S, as the wrapper's contract asks; the kernels ignore them);
+    # then hd 16 (every smoke config) and 120 (h2o-danube-3-4b), which the
+    # kernels run at their hd 64 and 128 instantiations, on both routes
     gen = torch.Generator(device=dev).manual_seed(5)
     for b, hh, ss, d, bq, bk, dt in ((1, 2, 512, 64, 256, 128, torch.float32),
                                      (2, 1, 256, 128, 128, 128, torch.float32),
@@ -547,7 +651,12 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
                                      (1, 4, 1024, 64, 256, 256, torch.bfloat16),
                                      (1, 8, 4096, 64, 256, 256, torch.bfloat16),
                                      (1, 3, 96, 128, 32, 32, torch.bfloat16),
-                                     (1, 2, 4160, 128, 64, 64, torch.bfloat16)):
+                                     (1, 2, 4160, 128, 64, 64, torch.bfloat16),
+                                     (1, 2, 512, 16, 256, 128, torch.float32),
+                                     (1, 2, 512, 120, 256, 128, torch.float32),
+                                     (1, 4, 1024, 16, 256, 256, torch.bfloat16),
+                                     (1, 8, 4096, 120, 256, 256, torch.bfloat16),
+                                     (1, 2, 4160, 120, 64, 64, torch.bfloat16)):
         x = [torch.randn((b, hh, ss, d), generator=gen, device=dev, dtype=dt)
              for _ in range(3)]
         name = str(dt).removeprefix("torch.")
@@ -574,8 +683,10 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
         if name == "flash_attention":  # it issues P V twice (P_hi, P_lo): 1.5x
             rows[name]["split_bound_ms"] = 1.5 * ops / rate * 1e3
     # the bf16 kernel at 8 heads, hd 64 and 128: the same scores, half the
-    # products at hd 64, so the ratio shows what the per-score work weighs
-    for d in (64, 128):
+    # products at hd 64, so the ratio shows what the per-score work weighs;
+    # hd 16 and 120 at the hd 64 and 128 instantiations (their columns past
+    # hd read as zero)
+    for d in (64, 128, 16, 120):
         x = [torch.randn((1, kv, s, d), generator=gen, device=dev, dtype=torch.bfloat16)
              for _ in range(3)]
         rows["flash_attention"][f"ms_H{kv}_hd{d}"] = cuda_ms(
@@ -588,8 +699,8 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
             + f"; plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
             f"{r['library_ms']:.4f} ms)")
     r = rows["flash_attention"]
-    log(f"time flash_attention B=1 H={kv} S={s} bf16: hd 64 {r[f'ms_H{kv}_hd64']:.4f} ms, "
-        f"hd 128 {r[f'ms_H{kv}_hd128']:.4f} ms")
+    log(f"time flash_attention B=1 H={kv} S={s} bf16: "
+        + ", ".join(f"hd {d} {r[f'ms_H{kv}_hd{d}']:.4f} ms" for d in (64, 128, 16, 120)))
     return rows
 
 
@@ -617,7 +728,7 @@ def main(argv: list[str] | None = None) -> int:
     import types
 
     from repro_torch.core import correction, packing
-    from repro_torch.core.packed_params import iter_packable_weights
+    from repro_torch.core.packed_params import fuse_projection_weights, iter_packable_weights
     from repro_torch.kernels import addpack_acc as A
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as F
@@ -631,11 +742,14 @@ def main(argv: list[str] | None = None) -> int:
     P = types.SimpleNamespace(dataclasses=dataclasses, ref=ref, T=T, Engine=Engine,
                               ServeConfig=ServeConfig, get_config=get_config,
                               iter_packable_weights=iter_packable_weights,
+                              fuse_projection_weights=fuse_projection_weights,
                               repeat_kv=_repeat_kv)
     M = types.SimpleNamespace(packing=packing, correction=correction, ref=ref)
 
     class K:  # the kernels' wrappers and plain versions
         int4_matmul, int4_matmul_plain = i4.int4_matmul, i4.int4_matmul_plain
+        int4_variant, packed_variant = i4.variant_for, pm.variant_for
+        int4_kernels, packed_kernels = i4.KERNELS, pm.KERNELS
         packed_matmul, packed_matmul_plain = pm.packed_matmul, pm.packed_matmul_plain
         packed_matmul_prepacked = pm.packed_matmul_prepacked
         packed_matmul_prepacked_plain = pm.packed_matmul_prepacked_plain
@@ -678,29 +792,36 @@ def main(argv: list[str] | None = None) -> int:
     zero_counts(K)
     t0 = time.perf_counter()
     serving_out = serve_full_width(torch, K, P, card)
-    launches = {k: f.launches for k, f in K.WRAPPERS.items()}
+    launches = kernel_counts(K)
     log(f"main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
-    need = {"int4_matmul": "int4_packed", "packed_matmul_prepacked": "dsp_tuned",
-            "packed_matmul": "dsp_packed"}
+    need = {"int4_matmul": "int4_packed", "int4_matmul_tc": "int4_packed",
+            "packed_matmul_prepacked": "dsp_tuned", "packed_matmul": "dsp_packed",
+            "packed_matmul_tiled": "dsp_packed"}
     for kernel, mode in need.items():
         if serving_out[mode]["launches"][kernel] < 1 or launches[kernel] < 1:
             raise RuntimeError(f"{kernel} never launched on the main path ({mode})")
 
-    # phase 5: kernel engine vs plain-version engine at the smoke config
+    # phase 5: kernel engine vs plain-version engine at the smoke config;
+    # prefill chunks of 4 rows x 2 slots run the M <= 16 kernels, of 16 the
+    # M > 16 ones
     smoke = dataclasses.replace(get_config("qwen1.5-110b", smoke=True), dtype="float32")
     sparams = T.init_params(smoke, seed=0, dtype=torch.float32, device="cuda")
     plan = ref.spec_from_name(MAIN_PLAN)
     prompts = [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
-    for mode in ("int4_packed", "dsp_tuned", "dsp_packed"):
+    for mode in PACKED_MODES:
         table = ({p: plan for p, _ in iter_packable_weights(sparams)}
                  if mode == "dsp_tuned" else None)
-        toks = [Engine(smoke, sparams, ServeConfig(
-                    n_slots=2, max_len=32, prefill_chunk=4, max_new=6, quant_mode=mode,
-                    device="cuda", use_kernel=uk), plan_table=table).generate(prompts)
-                for uk in (True, False)]
-        if toks[0] != toks[1]:
-            raise RuntimeError(f"{mode}: kernel engine {toks[0]} != plain engine {toks[1]}")
-        log(f"agreement {mode}: kernel and plain engines emit identical tokens")
+        for chunk in (4, 16):
+            toks = [Engine(smoke, sparams, ServeConfig(
+                        n_slots=2, max_len=32, prefill_chunk=chunk, max_new=6,
+                        quant_mode=mode, device="cuda", use_kernel=uk),
+                        plan_table=table).generate(prompts)
+                    for uk in (True, False)]
+            if toks[0] != toks[1]:
+                raise RuntimeError(f"{mode} chunk {chunk}: kernel engine {toks[0]} != "
+                                   f"plain engine {toks[1]}")
+            log(f"agreement {mode} (prefill chunk {chunk}): kernel and plain engines "
+                "emit identical tokens")
     del sparams
 
     # phase 6: the paper's arithmetic (Tables I/II) on the card
@@ -735,13 +856,19 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
 
     head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
+    head.update({r["kernel"]: r for r in rows
+                 if (r["M"], r["K"], r["N"]) == HEADLINE_PREFILL and r["parent_ms"] is not None})
     where = {
         "int4_matmul": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
                         "src/repro/kernels/int4_matmul.py:61"),
+        "int4_matmul_tc": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
+                           "src/repro/kernels/int4_matmul.py:61"),
         "packed_matmul_prepacked": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                                     "src/repro/kernels/packed_matmul.py:277"),
         "packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                           "src/repro/kernels/packed_matmul.py:127"),
+        "packed_matmul_tiled": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
+                                "src/repro/kernels/packed_matmul.py:127"),
     }
     kernels = []
     for name, (source, replaces) in where.items():
@@ -754,6 +881,8 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": f"M={r['M']} K={r['K']} N={r['N']}",
         })
+        if r["parent_ms"] is not None:
+            kernels[-1]["m16_kernel_ms"] = r["parent_ms"]
     def attn_max(name: str, against: str) -> float:
         return max(c[2] for c in attn_checks if c[0] == name and c[1].endswith(against))
 

@@ -11,8 +11,16 @@ of the port:
 * ``dsp_tuned``   — per-layer tuned plans carried by ``DspTunedLeaf``
   leaves; a float leaf under this mode (an unpackable weight) runs natively.
 
+The leaf decides before the mode, with the reference's two conditions: a
+2-D ``DspTunedLeaf`` runs its plan whatever the mode, and a 2-D nibble
+leaf runs the int4 path under ``int4_packed``; any other packed leaf (a
+nibble leaf under another mode, a stacked leaf) is dequantized at use and
+multiplied in float, its activations unquantized
+(:func:`packed_params.materialize_weight`).
+
 ``qat4``/``qat8`` (training) and ``int8`` are accepted as names, so that a
-reference configuration reads the same, and raise ``NotImplementedError``.
+reference configuration reads the same, and raise ``NotImplementedError``
+on a float leaf.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import INT4_EXACT, PackedDotSpec, pack_int4_weights
-from .packed_params import is_dsp_tuned_leaf, is_packed_leaf
+from .packed_params import is_dsp_tuned_leaf, is_packed_leaf, materialize_weight
 from .quantize import quantize_signed
 
 __all__ = ["LinearSpec", "apply_linear", "MODES"]
@@ -54,12 +62,9 @@ def apply_linear(params: dict, x: torch.Tensor,
     """``x @ w (+ b)`` through the selected compute mode."""
     w = params["w"]
     mode = spec.mode
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"linear mode {mode!r} is not ported yet: {_NOT_PORTED[mode]}"
-        )
     lead = x.shape[:-1]
-    if is_dsp_tuned_leaf(w):
+    if is_dsp_tuned_leaf(w) and w.payload.dim() == 2:
+        # this layer's tuned plan rides on the leaf, whatever the mode
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         if w.prepacked:
             # the f32 shortcut only off the kernel path (see kernels.ops)
@@ -73,8 +78,8 @@ def apply_linear(params: dict, x: torch.Tensor,
                 x2, w.values, w.scale, w.spec, use_kernel=spec.use_kernel
             )
         y = y.reshape(*lead, y.shape[-1]).to(x.dtype)
-    elif is_packed_leaf(w):
-        # nibble leaves (quantize_for_serving "int4_packed") run the int4 path
+    elif is_packed_leaf(w) and mode == "int4_packed" and w["packed"].dim() == 2:
+        # the int4 kernel straight off the stored nibbles
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         if "w_f32" in w and not spec.use_kernel:
             y = ops.int4_prepacked_matmul_f32(x2, w["w_f32"], w["scale"])
@@ -83,6 +88,13 @@ def apply_linear(params: dict, x: torch.Tensor,
                 x2, w["packed"], w["scale"], use_kernel=spec.use_kernel
             )
         y = y.reshape(*lead, y.shape[-1]).to(x.dtype)
+    elif is_packed_leaf(w) or is_dsp_tuned_leaf(w):
+        # packed storage under a float path: dequantize at use
+        y = x @ materialize_weight(w, x.dtype)
+    elif mode in _NOT_PORTED:
+        raise NotImplementedError(
+            f"linear mode {mode!r} is not ported yet: {_NOT_PORTED[mode]}"
+        )
     elif mode in ("native", "dsp_tuned"):
         y = x @ w.to(x.dtype)
     elif mode == "int4_packed":

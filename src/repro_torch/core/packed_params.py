@@ -31,6 +31,9 @@ from .quantize import quantize_signed, zero_point_correction
 
 __all__ = [
     "quantize_for_serving",
+    "fuse_projection_weights",
+    "dequantize_packed",
+    "materialize_weight",
     "is_packed_leaf",
     "is_dsp_tuned_leaf",
     "iter_packable_weights",
@@ -124,6 +127,71 @@ class DspTunedLeaf:
     @property
     def prepacked(self) -> bool:
         return self.words is not None
+
+
+def dequantize_packed(p: dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A nibble leaf (..., K//2, N) -> its float weight (..., K, N): the
+    nibbles sign-extended, times the per-channel scale in f32, cast to
+    ``dtype``."""
+    w = unpack_signed_nibbles(p["packed"])
+    return (w.to(torch.float32) * p["scale"]).to(dtype)
+
+
+def materialize_weight(p, dtype: torch.dtype) -> torch.Tensor:
+    """The float weight of any leaf: a nibble leaf or a
+    :class:`DspTunedLeaf` dequantized, a float tensor as it is (the funnel
+    multiplies by it where no packed path takes the leaf)."""
+    if is_packed_leaf(p):
+        return dequantize_packed(p, dtype)
+    if is_dsp_tuned_leaf(p):
+        return (p.values.to(torch.float32) * p.scale).to(dtype)
+    return p
+
+
+def fuse_projection_weights(params, fuse_attn: bool = True, fuse_mlp: bool = True):
+    """Engine-build fusion of same-input projections.
+
+    Attention's q/k/v and SwiGLU's up/gate read the same activation:
+    concatenating their float weights along the output axis turns three
+    (two) matmuls per step into one.  Weights are quantized per output
+    channel and activations per row, so the fused quantized matmul is
+    bit-identical per column to the unfused ones.  A dict holding wq/wk/wv
+    linears becomes ``{"wqkv": ...}`` (cross-attention, under ``xattn``,
+    never fuses); one holding up/gate/down with equal up and gate shapes
+    becomes ``{"upgate": ..., "down": ...}``.  Biases concatenate alongside.
+    The layer list of ``groups`` is walked element by element.
+    """
+
+    def is_linear(d) -> bool:
+        return isinstance(d, dict) and isinstance(d.get("w"), torch.Tensor)
+
+    def fuse(parts: list[dict]) -> dict:
+        fused = {"w": torch.cat([q["w"] for q in parts], dim=-1)}
+        if all("b" in q for q in parts):
+            fused["b"] = torch.cat([q["b"] for q in parts], dim=-1)
+        return fused
+
+    def walk(tree):
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if (fuse_attn and k != "xattn" and isinstance(v, dict)
+                    and all(is_linear(v.get(n)) for n in ("wq", "wk", "wv"))):
+                rest = {n: walk(s) for n, s in v.items() if n not in ("wq", "wk", "wv")}
+                out[k] = {"wqkv": fuse([v["wq"], v["wk"], v["wv"]]), **rest}
+            elif (fuse_mlp and isinstance(v, dict)
+                    and all(is_linear(v.get(n)) for n in ("up", "gate", "down"))
+                    and v["up"]["w"].shape == v["gate"]["w"].shape):
+                rest = {n: walk(s) for n, s in v.items() if n not in ("up", "gate")}
+                out[k] = {"upgate": fuse([v["up"], v["gate"]]), **rest}
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(params)
 
 
 def iter_packable_weights(

@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "QuantizedTensor",
+    "dequantize",
     "quantize_signed",
     "quantize_unsigned",
     "zero_point_correction",
@@ -60,6 +61,11 @@ def quantize_unsigned(x: torch.Tensor, bits: int = 4, axis: int = -1) -> Quantiz
     scale = _absmax_scale(x, axis, qmax)
     q = (x / scale).round_().add_(zp).clamp_(0, (1 << bits) - 1).to(torch.uint8)
     return QuantizedTensor(q, scale, bits=bits, zero_point=zp)
+
+
+def dequantize(q: QuantizedTensor) -> torch.Tensor:
+    """``(values - zero_point) * scale`` in f32."""
+    return q.dequantize()
 
 
 def zero_point_correction(w_q: torch.Tensor, zp: int) -> torch.Tensor:

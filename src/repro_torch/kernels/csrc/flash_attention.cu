@@ -1,6 +1,8 @@
 // Causal flash-attention forward for Hopper (sm_90a) on the CUDA cores: q, k,
-// v (B*H, S, hd) f32 -> out (B*H, S, hd) f32, hd 64 or 128.  bf16 inputs go
-// to the tensor-core kernel, flash_attention_sm90.cu.
+// v (B*H, S, hd) f32 -> out (B*H, S, hd) f32, hd a multiple of 8 up to 128
+// (instantiated at HD = 64 for hd <= 64, else 128; a narrower head's missing
+// columns load as zero, add nothing to the scores and are not stored).  bf16
+// inputs go to the tensor-core kernel, flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (Pallas body _kernel) for f32 inputs, and computes what it computes: q
@@ -30,7 +32,7 @@
 // three bf16 terms), a pipelined K/V load, split-K for long rows.
 //
 // Contract checked by the Python wrapper: q, k, v, out contiguous, 16-byte
-// aligned, f32, on the current device; hd in {64, 128}.
+// aligned, f32, on the current device; hd a multiple of 8 up to 128.
 
 #include <cuda_runtime.h>
 
@@ -85,7 +87,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int BH, int S,
-                       float scale) {
+                       int hd, float scale) {
   constexpr int KS = HD + 4;   // K tile row stride (floats)
   constexpr int D4 = HD / 4;   // float4 groups per row
   constexpr int JV = HD / 64;  // output float4 groups per thread and row
@@ -98,7 +100,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // longest rows first
-  const size_t base = (size_t)(blockIdx.x % BH) * S * HD;
+  const size_t base = (size_t)(blockIdx.x % BH) * S * hd;  // rows hd apart
   const int tid = threadIdx.x;
   const int r = tid >> 4;  // query rows 4r .. 4r+3 of the tile
   const int c = tid & 15;  // keys c + 16j; output columns 4c + 64jj .. +3
@@ -107,8 +109,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = g / D4, d = (g % D4) * 4;
     const int pos = qt * kBQ + row;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < S) {
-      x = ldg4(q + base + (size_t)pos * HD + d);
+    if (pos < S && d < hd) {
+      x = ldg4(q + base + (size_t)pos * hd + d);
       x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
     }
     *reinterpret_cast<float4*>(Qs + row * HD + d) = x;
@@ -130,9 +132,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = g / D4, d = (g % D4) * 4;
       const int pos = kt * kBK + row;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (pos < S) {
-        kx = ldg4(k + base + (size_t)pos * HD + d);
-        vx = ldg4(v + base + (size_t)pos * HD + d);
+      if (pos < S && d < hd) {
+        kx = ldg4(k + base + (size_t)pos * hd + d);
+        vx = ldg4(v + base + (size_t)pos * hd + d);
       }
       *reinterpret_cast<float4*>(Ks + row * KS + d) = kx;
       *reinterpret_cast<float4*>(Vs + row * HD + d) = vx;
@@ -212,14 +214,15 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < JV; ++jj) {
       const float4 a = acc[i][jj];
-      *reinterpret_cast<float4*>(out + base + (size_t)qpos * HD + 4 * c + 64 * jj) =
-          make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+      if (4 * c + 64 * jj < hd)
+        *reinterpret_cast<float4*>(out + base + (size_t)qpos * hd + 4 * c + 64 * jj) =
+            make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
     }
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int S,
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int S, int hd,
            float scale, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<HD>;
   constexpr int smem = smem_bytes<HD>();
@@ -230,7 +233,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int S
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), BH, S, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), BH, S, hd, scale);
   return (int)cudaGetLastError();
 }
 
@@ -241,8 +244,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* out, int BH, int S, int hd, float scale,
                                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  if (hd == 64) return launch<64>(q, k, v, out, BH, S, scale, s);
-  if (hd == 128) return launch<128>(q, k, v, out, BH, S, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || S <= 0 || hd < 8 || hd % 8 || hd > 128) return (int)cudaErrorInvalidValue;
+  if (hd <= 64) return launch<64>(q, k, v, out, BH, S, hd, scale, s);
+  return launch<128>(q, k, v, out, BH, S, hd, scale, s);
 }

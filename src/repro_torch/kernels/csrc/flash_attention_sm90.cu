@@ -1,5 +1,6 @@
 // Causal flash-attention forward for Hopper (sm_90a) on the bf16 tensor
-// cores: q, k, v (B*H, S, hd) bf16 -> out (B*H, S, hd) bf16, hd 64 or 128.
+// cores: q, k, v (B*H, S, hd) bf16 -> out (B*H, S, hd) bf16, hd a multiple
+// of 8 up to 128.
 // The f32 route stays on the CUDA cores (flash_attention.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
@@ -41,7 +42,11 @@
 //   counted on mbarriers; one producer warp issues them, and each consumer
 //   warp releases a stage once its P V has read it.  Out-of-bounds rows of a
 //   box are zero-filled: keys >= S are then past every stored query and so
-//   masked, and rows >= S are not stored, which handles ragged S.
+//   masked, and rows >= S are not stored, which handles ragged S.  The same
+//   zero fill handles a head narrower than the instantiation (HD = 64 for
+//   hd <= 64, else 128): the tensor maps span the true hd, so the box's
+//   columns past it read as zero, add nothing to Q K^T and give output
+//   columns that are not stored.  No copy pads the head.
 //
 // What bounds it on this card: the products, 4 * S*S/2 * hd operations per
 // head against 8 bytes per element of q, k, v and out, are far above the
@@ -66,7 +71,7 @@
 // persistent grid.
 //
 // Contract checked by the Python wrapper: q, k, v, out contiguous, 16-byte
-// aligned, bf16, on the current device; hd in {64, 128}.
+// aligned, bf16, on the current device; hd a multiple of 8 up to 128.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -357,7 +362,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ out, int BH, int S, float scale) {
+                            __nv_bfloat16* __restrict__ out, int BH, int S, int hd,
+                            float scale) {
   using L = Smem<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -478,15 +484,15 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const float d_lo = fmaxf(quad_sum(rows.l_lo), 1e-30f);
   const float d_hi = fmaxf(quad_sum(rows.l_hi), 1e-30f);
-  __nv_bfloat16* head = out + (size_t)bh * S * HD;
+  __nv_bfloat16* head = out + (size_t)bh * S * hd;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
-    const int c = 8 * j + col;
-    if (r_lo < S)
-      *reinterpret_cast<__nv_bfloat162*>(head + (size_t)r_lo * HD + c) =
+    const int c = 8 * j + col;  // c + 1 < hd too: hd is a multiple of 8
+    if (r_lo < S && c < hd)
+      *reinterpret_cast<__nv_bfloat162*>(head + (size_t)r_lo * hd + c) =
           __floats2bfloat162_rn(o[4 * j] / d_lo, o[4 * j + 1] / d_lo);
-    if (r_hi < S)
-      *reinterpret_cast<__nv_bfloat162*>(head + (size_t)r_hi * HD + c) =
+    if (r_hi < S && c < hd)
+      *reinterpret_cast<__nv_bfloat162*>(head + (size_t)r_hi * hd + c) =
           __floats2bfloat162_rn(o[4 * j + 2] / d_hi, o[4 * j + 3] / d_hi);
   }
 }
@@ -519,7 +525,8 @@ EncodeTiled encode_tiled() {
 }
 
 // (B*H, S, hd) bf16 as a 3-D tensor map of (64 x rows x 1) boxes, 128-byte
-// swizzle; out-of-bounds elements of a box read as zero.
+// swizzle; out-of-bounds elements of a box (rows past S, columns past hd)
+// read as zero.
 CUresult tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int hd,
                     int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)BH};
@@ -532,14 +539,14 @@ CUresult tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int S, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int S, int hd,
+           float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  CUresult res = tensor_map(encode, &tq, q, BH, S, HD, kBQ);
-  if (res == CUDA_SUCCESS) res = tensor_map(encode, &tk, k, BH, S, HD, kBK);
-  if (res == CUDA_SUCCESS) res = tensor_map(encode, &tv, v, BH, S, HD, kBK);
+  CUresult res = tensor_map(encode, &tq, q, BH, S, hd, kBQ);
+  if (res == CUDA_SUCCESS) res = tensor_map(encode, &tk, k, BH, S, hd, kBK);
+  if (res == CUDA_SUCCESS) res = tensor_map(encode, &tv, v, BH, S, hd, kBK);
   if (res != CUDA_SUCCESS) return 1000 + (int)res;
   auto kernel = flash_attention_sm90_kernel<HD>;
   constexpr int smem = Smem<HD>::kBytes;
@@ -550,7 +557,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int S
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(tq, tk, tv,
                                                        static_cast<__nv_bfloat16*>(out), BH, S,
-                                                       scale);
+                                                       hd, scale);
   return (int)cudaGetLastError();
 }
 
@@ -562,8 +569,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
                                            void* out, int BH, int S, int hd, float scale,
                                            void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  if (hd == 64) return launch<64>(q, k, v, out, BH, S, scale, s);
-  if (hd == 128) return launch<128>(q, k, v, out, BH, S, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || S <= 0 || hd < 8 || hd % 8 || hd > 128) return (int)cudaErrorInvalidValue;
+  if (hd <= 64) return launch<64>(q, k, v, out, BH, S, hd, scale, s);
+  return launch<128>(q, k, v, out, BH, S, hd, scale, s);
 }

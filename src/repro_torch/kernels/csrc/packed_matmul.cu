@@ -26,7 +26,8 @@
 // bound it: there is no tensor-core form of a wrapping int32 x int32
 // product.
 //
-// What the design does about it: each thread owns one output column and
+// What the design does about it, at M <= 16 (packed_matmul_kernel, both
+// entries): each thread owns one output column and
 // reads its words once per M tile, coalesced across the warp; activation
 // pair words for the block's M tile are built once per K tile into shared
 // memory (quantized there from f32 in the fused form, so the integer
@@ -40,6 +41,24 @@
 // order-independent mod 2**32.  Not yet done: a
 // compact wsc stream (only its even lane and mr_bits of it are read), TMA,
 // a load pipeline.
+//
+// At M > 16 the per-call entry (packed_matmul) runs packed_matmul_tiled_kernel
+// instead.  What held the one-column kernel back there: a block held at most
+// 16 rows, so M = 64 streamed the weights four times and packed every weight
+// word four times; every pair product cost a shared-memory load besides its
+// IMAD; and each thread's single column gave the scheduler little
+// independent work.  What the tiled design does: a block covers 64 rows x
+// 128 columns, so the weights stream from HBM once per launch, through a
+// 3-stage cp.async ring that also carries the int32 activation tile; each
+// stage is turned once per block into weight pair words and activation pair
+// words in shared memory; each thread then owns an 8-row x 4-column
+// register tile, so one 128-bit load of four weight words and two of eight
+// activation words feed 32 IMADs.  Extraction happens exactly every n_pairs
+// products (a stage holds whole chunks); without an mr correction it is one
+// arithmetic shift and an add per field, the alignment folded into the
+// weight words and the rounding into the partial sum's start (see
+// note above packed_matmul_tiled_kernel).  The IMADs then bound it: a wrapping int32 x int32 product has no tensor-core
+// form, so it stays behind an int8 tensor-core GEMM of the same shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -263,6 +282,237 @@ int dispatch_bm(int bm, const void* x, const float* x_scale, const int32_t* word
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---- per-call entry at M > 16: 2-D register tiles ------------------------------
+
+namespace tiled {
+
+constexpr int kBM = 64, kBN = 128;   // block tile
+constexpr int kTM = 8, kTN = 4;      // thread tile: rows tr*8.., columns tc*4..
+constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256: a warp per 8 rows
+constexpr int kStages = 3;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+// Shared-memory plan of one launch, in 32-bit words.
+struct Layout {
+  int kt;        // k per stage: 2 * tile_chunks * n_pairs
+  int sp;        // pairs per stage
+  int xs;        // activation row stride in the ring (kt + 4: fewer bank conflicts)
+  int ring_x, ring_w, stage;  // ring words per stage: x, w, together
+  int ww, we, aw, xo;         // offsets of the per-stage compute buffers
+  int total;
+
+  __host__ __device__ Layout(int pairs, int n_columns, bool mr) {
+    sp = pairs;
+    kt = 2 * sp;
+    xs = kt + 4;
+    ring_x = kBM * xs;
+    ring_w = kt * kBN / 4;
+    stage = ring_x + ring_w;
+    ww = kStages * stage;                 // [sp][kBN] weight pair words
+    we = ww + sp * kBN;                   // [sp][kBN] even weights (mr)
+    aw = we + (mr ? sp * kBN : 0);        // [n_columns][sp][kBM] pair words
+    xo = aw + n_columns * sp * kBM;       // [n_columns][sp][kBM] odd slices (mr)
+    total = xo + (mr ? n_columns * sp * kBM : 0);
+  }
+};
+
+// Extraction without an mr correction, for p <= 15 (the int32 budget of
+// every legal spec): sext_p(((v >> (p-1)) + 1) >> 1) (round half up) or
+// sext_p(v >> p) (floor) equals (int32)((v + r) << (32-2p)) >> (32-p), with
+// r = 2**(p-1) or 0: the left shift drops the bits above the field, the
+// arithmetic shift sign-extends it.  The left shift distributes over the
+// wrapping sum, so the kernel applies it once to each weight pair word as
+// it packs the stage and starts each chunk's partial sum at r << (32-2p):
+// the products then arrive aligned, and extraction is one arithmetic shift.
+
+// NP, PB, NC, TCH: n_pairs, p, n_columns and chunks per stage at compile
+// time (0 = read from P); MR: an mr plan.
+template <int NP, int PB, int NC, int TCH, bool MR>
+__global__ void __launch_bounds__(kThreads)
+packed_matmul_tiled_kernel(const int32_t* __restrict__ x, const int8_t* __restrict__ w,
+                           int32_t* __restrict__ out, Params P) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_pairs = NP > 0 ? NP : P.n_pairs;
+  const int p = PB > 0 ? PB : P.p;
+  const int n_columns = NC > 0 ? NC : P.n_columns;
+  const int tile_chunks = TCH > 0 ? TCH : P.tile_chunks;
+  const Layout L(tile_chunks * n_pairs, n_columns, MR);
+  const int chunk = 2 * n_pairs;
+  const int tid = threadIdx.x;
+  const int tr = tid >> 5, tc = tid & 31;  // rows tr*8 .. +7, columns tc*4 .. +3
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int c_begin = blockIdx.z * P.chunks_per_split;
+  const int c_end = min(c_begin + P.chunks_per_split, P.n_chunks);
+  const int k_begin = c_begin * chunk;
+  const int k_lim = min(c_end * chunk, P.K);  // activations past it read as 0
+  const int n_tiles = (c_end - c_begin + tile_chunks - 1) / tile_chunks;
+
+  auto load_stage = [&](int i) {
+    uint32_t* sx = smem + (i % kStages) * L.stage;
+    uint8_t* sw = reinterpret_cast<uint8_t*>(sx + L.ring_x);
+    const int k0 = k_begin + i * L.kt;
+    const int xq = L.kt / 4;  // 16-byte chunks per activation row
+    for (int c = tid; c < kBM * xq; c += kThreads) {
+      const int r = c / xq, q = c % xq;
+      const int k = k0 + 4 * q;
+      const bool ok = m0 + r < P.M && k < k_lim;
+      cp_async16(sx + r * L.xs + 4 * q, x + (ok ? (size_t)(m0 + r) * P.K + k : 0),
+                 ok ? 16 : 0);
+    }
+    for (int c = tid; c < L.kt * (kBN / 16); c += kThreads) {
+      const int r = c / (kBN / 16), q = c % (kBN / 16);
+      const int k = k0 + r, n = n0 + 16 * q;
+      const bool ok = k < P.kw && n < P.N;
+      cp_async16(sw + r * kBN + 16 * q, w + (ok ? (size_t)k * P.N + n : 0), ok ? 16 : 0);
+    }
+  };
+
+  const uint32_t cmask = n_columns == 1 ? 0xFFFFFFFFu : (1u << P.col_bits_a) - 1u;
+  const uint32_t mrmask = (1u << P.mr_bits) - 1u;
+  // non-mr: weight words pre-shifted by 32 - 2p, partial sums start at the
+  // shifted rounding offset (see above)
+  const int align = MR ? 0 : 32 - 2 * p;
+  const uint32_t part0 = !MR && P.rounds_half_up ? 1u << (31 - p) : 0u;
+
+  uint32_t acc[kTM][kTN];
+#pragma unroll
+  for (int m = 0; m < kTM; ++m)
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) acc[m][n] = 0u;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();  // stage i landed; the previous stage's words are consumed
+    if (i + kStages - 1 < n_tiles) load_stage(i + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const uint32_t* sx = smem + (i % kStages) * L.stage;
+    const uint8_t* sw = reinterpret_cast<const uint8_t*>(sx + L.ring_x);
+    // weight pair words w[2q+1] + (w[2q] << p), four columns per item
+    for (int it = tid; it < L.sp * (kBN / 4); it += kThreads) {
+      const int q = it / (kBN / 4), c4 = it % (kBN / 4);
+      const uint32_t e = *reinterpret_cast<const uint32_t*>(sw + (2 * q) * kBN + 4 * c4);
+      const uint32_t o = *reinterpret_cast<const uint32_t*>(sw + (2 * q + 1) * kBN + 4 * c4);
+      uint32_t pw[4], pe[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const uint32_t w0 = (uint32_t)(int32_t)(int8_t)(e >> (8 * b));
+        const uint32_t w1 = (uint32_t)(int32_t)(int8_t)(o >> (8 * b));
+        pw[b] = (w1 + (w0 << p)) << align;
+        pe[b] = w0 & mrmask;
+      }
+      reinterpret_cast<uint4*>(smem + L.ww)[it] = make_uint4(pw[0], pw[1], pw[2], pw[3]);
+      if (MR) reinterpret_cast<uint4*>(smem + L.we)[it] = make_uint4(pe[0], pe[1], pe[2], pe[3]);
+    }
+    // activation pair words x[2q] + (x[2q+1] << p) per column slice, rows fastest
+    for (int it = tid; it < L.sp * kBM; it += kThreads) {
+      const int m = it % kBM, q = it / kBM;
+      const uint2 v = *reinterpret_cast<const uint2*>(sx + m * L.xs + 2 * q);
+      for (int j = 0; j < n_columns; ++j) {
+        const uint32_t s0 = (v.x >> (j * P.col_bits_a)) & cmask;
+        const uint32_t s1 = (v.y >> (j * P.col_bits_a)) & cmask;
+        smem[L.aw + (j * L.sp + q) * kBM + m] = s0 + (s1 << p);
+        if (MR) smem[L.xo + (j * L.sp + q) * kBM + m] = s1 & mrmask;
+      }
+    }
+    __syncthreads();
+    const uint4* ww4 = reinterpret_cast<const uint4*>(smem + L.ww) + tc;
+    const uint4* we4 = reinterpret_cast<const uint4*>(smem + L.we) + tc;
+    for (int j = 0; j < n_columns; ++j) {
+      const uint4* aw4 = reinterpret_cast<const uint4*>(smem + L.aw + j * L.sp * kBM) + 2 * tr;
+      const uint4* xo4 = reinterpret_cast<const uint4*>(smem + L.xo + j * L.sp * kBM) + 2 * tr;
+      const int shift = j * P.col_bits_a;
+#pragma unroll
+      for (int cc = 0; cc < tile_chunks; ++cc) {
+        uint32_t part[kTM][kTN], cont[kTM][kTN];
+#pragma unroll
+        for (int m = 0; m < kTM; ++m)
+#pragma unroll
+          for (int n = 0; n < kTN; ++n) {
+            part[m][n] = part0;
+            cont[m][n] = 0u;
+          }
+#pragma unroll 4
+        for (int pp = 0; pp < n_pairs; ++pp) {
+          const int q = cc * n_pairs + pp;
+          const uint4 wv = ww4[q * (kBN / 4)];
+          const uint4 a0 = aw4[q * (kBM / 4)], a1 = aw4[q * (kBM / 4) + 1];
+          const uint32_t wr[kTN] = {wv.x, wv.y, wv.z, wv.w};
+          const uint32_t ar[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int m = 0; m < kTM; ++m)
+#pragma unroll
+            for (int n = 0; n < kTN; ++n) part[m][n] += ar[m] * wr[n];
+          if (MR) {
+            const uint4 ev = we4[q * (kBN / 4)];
+            const uint4 o0 = xo4[q * (kBM / 4)], o1 = xo4[q * (kBM / 4) + 1];
+            const uint32_t er[kTN] = {ev.x, ev.y, ev.z, ev.w};
+            const uint32_t orr[kTM] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+            for (int m = 0; m < kTM; ++m)
+#pragma unroll
+              for (int n = 0; n < kTN; ++n) cont[m][n] += orr[m] * er[n];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kTM; ++m)
+#pragma unroll
+          for (int n = 0; n < kTN; ++n) {
+            const int32_t e = MR ? extract(part[m][n], cont[m][n] & mrmask, P)
+                                 : (int32_t)part[m][n] >> (32 - p);
+            acc[m][n] += NC == 1 ? (uint32_t)e : (uint32_t)e << shift;
+          }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int m = 0; m < kTM; ++m) {
+    const int row = m0 + kTM * tr + m;
+    if (row >= P.M) continue;
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) {
+      const int col = n0 + kTN * tc + n;
+      if (col >= P.N) continue;
+      int32_t* o = out + (size_t)row * P.N + col;
+      if (split) atomicAdd(o, (int32_t)acc[m][n]);
+      else *o = (int32_t)acc[m][n];
+    }
+  }
+}
+
+template <int NP, int PB, int NC, int TCH, bool MR>
+int launch_tiled(const int32_t* x, const int8_t* w, int32_t* out, const Params& P,
+                 int splits, cudaStream_t stream) {
+  auto kernel = packed_matmul_tiled_kernel<NP, PB, NC, TCH, MR>;
+  const size_t smem =
+      (size_t)Layout(P.tile_chunks * P.n_pairs, P.n_columns, P.uses_mr).total *
+      sizeof(uint32_t);
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((P.N + kBN - 1) / kBN, (P.M + kBM - 1) / kBM, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(x, w, out, P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiled
+
 }  // namespace
 
 // Prepacked entry.  x_scale == nullptr: x holds int32 unsigned activations;
@@ -290,4 +540,23 @@ extern "C" int packed_matmul_launch(const void* x, const void* w, void* out,
   return dispatch_bm<false, true>(bm, x, nullptr, nullptr, nullptr,
                                   static_cast<const int8_t*>(w), static_cast<int32_t*>(out),
                                   *P, splits, static_cast<cudaStream_t>(stream));
+}
+
+// Per-call entry at M > 16 (2-D register tiles): x int32 (M, K) with
+// K % 4 == 0, w int8 (kw, N) with N % 16 == 0; P.tile_chunks chunks per
+// pipeline stage, P.chunks_per_split a multiple of it.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int packed_matmul_tiled_launch(const void* x, const void* w, void* out,
+                                          const PackedParams* P, int splits,
+                                          void* stream) {
+  if (P->K % 4 || P->N % 16 || P->p > 15 || splits < 1) return (int)cudaErrorInvalidValue;
+  const auto* xp = static_cast<const int32_t*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (P->uses_mr) return tiled::launch_tiled<0, 0, 0, 0, true>(xp, wp, o, *P, splits, st);
+  if (P->n_pairs == 4 && P->p == 11 && P->n_columns == 1 && P->tile_chunks == 4)
+    // INT4_EXACT / INT4_NAIVE, dsp_packed's default plan
+    return tiled::launch_tiled<4, 11, 1, 4, false>(xp, wp, o, *P, splits, st);
+  return tiled::launch_tiled<0, 0, 0, 0, false>(xp, wp, o, *P, splits, st);
 }

@@ -12,8 +12,14 @@ with the tiles past the diagonal skipped, and the sum is divided by
 tiles.
 
 Routes: bf16 runs on the tensor cores (``csrc/flash_attention_sm90.cu``:
-wgmma, TMA), f32 on the CUDA cores (``csrc/flash_attention.cu``).  The
-tensor-core kernel applies the scale after the product and splits P into
+wgmma, TMA), f32 on the CUDA cores (``csrc/flash_attention.cu``).  Both
+are instantiated at hd 64 and 128 and take any hd that is a multiple of 8
+up to 128 at the next of them: they read the head's true columns and see
+zeros past them (the bf16 kernel's TMA boxes zero-fill, the f32 kernel
+masks its loads), which add nothing to Q Kᵀ and give output columns that
+are never stored.  Nothing is copied; the products run at the
+instantiated width.  The tensor-core kernel applies the scale after the
+product and splits P into
 two bf16 terms for P V; :func:`emulate_tensor_core_flash` repeats that
 rounding in PyTorch, for the tests and the card's checks only.
 
@@ -39,7 +45,7 @@ __all__ = ["flash_attention", "plain_flash_attention", "emulate_tensor_core_flas
 NEG_INF = -1e30
 # dtype -> the source stem of the kernel that takes it
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
-_HEAD_DIMS = (64, 128)          # the CUDA kernels' instantiations
+MAX_HEAD_DIM = 128              # the CUDA kernels take hd % 8 == 0 up to this
 _TC_BK = 64                     # the tensor-core kernel's key tile
 _SCORE_BYTES = 1 << 30          # plain version: f32 scores held at once
 
@@ -135,15 +141,17 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = 256, bk: int = 256) -> torch.Tensor:
-    """Causal attention.  q, k, v: (B, H, S, hd) -> (B, H, S, hd).  Counts
-    every launch in ``launches`` and in ``route_launches[ROUTES[dtype]]``."""
+    """Causal attention.  q, k, v: (B, H, S, hd) -> (B, H, S, hd), hd a
+    multiple of 8 up to 128 on the card.  Counts every launch in
+    ``launches`` and in ``route_launches[ROUTES[dtype]]``."""
     _check(q, k, v, bq, bk)
     if not q.is_cuda:
         return plain_flash_attention(q, k, v)
     dev = q.device
     b, h, s, hd = q.shape
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take hd in {_HEAD_DIMS}, got {hd}")
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take hd a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         require(t, name, q.dtype, dev, 4)
     out = torch.empty_like(q)

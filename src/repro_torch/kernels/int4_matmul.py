@@ -2,9 +2,14 @@
 
 (M, K) int8 activations x (K//2, N) uint8 weights, two signed nibbles per
 byte -> (M, N) int32.  Counterpart of the reference's
-``repro.kernels.int4_matmul.int4_matmul``.  A CUDA tensor launches the
-kernel (or raises); a CPU tensor runs the plain version
+``repro.kernels.int4_matmul.int4_matmul``.  Two CUDA kernels share the
+entry, chosen by M (:data:`VARIANTS`): ``int4_matmul`` (dp4a on the CUDA
+cores) for M <= 16, the decode GEMV, and ``int4_matmul_tc`` (int8 tensor
+cores, ``mma.sync`` m16n8k32) above, the prefill chunks.  A CUDA tensor
+launches one of them (or raises); a CPU tensor runs the plain version
 :func:`int4_matmul_plain`, which is the only reason it ever does.
+:data:`KERNELS` maps each variant to its launcher (CUDA tensors of the
+entry's shapes), so that the two can be timed at one shape.
 """
 
 from __future__ import annotations
@@ -14,13 +19,24 @@ import ctypes
 import torch
 
 from . import build, ref
-from ._launch import require, split_k
+from ._launch import require, sm_count, split_k
 
-__all__ = ["int4_matmul", "int4_matmul_plain"]
+__all__ = ["int4_matmul", "int4_matmul_plain", "variant_for", "KERNELS", "VARIANTS",
+           "TC_MIN_M"]
+
+VARIANTS = ("int4_matmul", "int4_matmul_tc")
+TC_MIN_M = 17      # the tensor-core kernel takes M >= TC_MIN_M
+_TC_BK, _TC_BN, _TC_BM = 64, 128, 64  # csrc tc::kBK, kBN, kBM
 
 _argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+_tc_argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def variant_for(m: int) -> str:
+    """The kernel :func:`int4_matmul` launches for ``m`` rows by default."""
+    return VARIANTS[m >= TC_MIN_M]
 
 
 def int4_matmul_plain(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
@@ -29,7 +45,8 @@ def int4_matmul_plain(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor
 
 
 def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x (K//2, N) packed-nibble uint8 -> (M, N) int32."""
+    """(M, K) int8 x (K//2, N) packed-nibble uint8 -> (M, N) int32.  Every
+    launch counts in ``launches`` and in ``variant_launches[variant]``."""
     if x_q.dim() != 2 or w_packed.dim() != 2 or x_q.shape[1] != 2 * w_packed.shape[0]:
         raise ValueError(
             f"int4_matmul wants (M, K) x (K//2, N), got {tuple(x_q.shape)} "
@@ -37,6 +54,11 @@ def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
         )
     if not x_q.is_cuda:
         return int4_matmul_plain(x_q, w_packed)
+    return KERNELS[variant_for(x_q.shape[0])](x_q, w_packed)
+
+
+def _int4_matmul_dp4a(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """The dp4a kernel, any M."""
     dev = x_q.device
     m, k = x_q.shape
     n = w_packed.shape[1]
@@ -62,7 +84,41 @@ def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
              bm, splits, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "int4_matmul")
     int4_matmul.launches += 1
+    int4_matmul.variant_launches["int4_matmul"] += 1
     return out[:, :n] if pad_n else out
 
 
+def _int4_matmul_tc(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel, any M: K padded to a multiple of 64 and N of 16
+    with zero activations and zero nibbles (bit-transparent; the main
+    path's shapes never pad)."""
+    dev = x_q.device
+    m, k = x_q.shape
+    n = w_packed.shape[1]
+    pad_k, pad_n = (-k) % _TC_BK, (-n) % 16
+    if pad_k or pad_n:
+        x_q = torch.nn.functional.pad(x_q, (0, pad_k))
+        w_packed = torch.nn.functional.pad(w_packed, (0, pad_n, 0, pad_k // 2))
+    require(x_q, "x_q", torch.int8, dev, 2)
+    require(w_packed, "w_packed", torch.uint8, dev, 2)
+    kp, np_ = k + pad_k, n + pad_n
+    # split K until about two blocks per SM are in flight, four stages each
+    blocks = -(-np_ // _TC_BN) * -(-m // _TC_BM)
+    tiles = kp // _TC_BK
+    splits = max(1, min(-(-2 * sm_count(dev.index or 0) // blocks), tiles // 4))
+    out = (torch.zeros if splits > 1 else torch.empty)(
+        (m, np_), dtype=torch.int32, device=dev
+    )
+    fn = build.library("int4_matmul").int4_matmul_tc_launch
+    fn.argtypes, fn.restype = _tc_argtypes, ctypes.c_int
+    err = fn(x_q.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, kp, np_,
+             splits, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "int4_matmul_tc")
+    int4_matmul.launches += 1
+    int4_matmul.variant_launches["int4_matmul_tc"] += 1
+    return out[:, :n] if pad_n else out
+
+
+KERNELS = {"int4_matmul": _int4_matmul_dp4a, "int4_matmul_tc": _int4_matmul_tc}
 int4_matmul.launches = 0
+int4_matmul.variant_launches = dict.fromkeys(VARIANTS, 0)

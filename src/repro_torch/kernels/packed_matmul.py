@@ -7,7 +7,12 @@ Counterparts of the reference's ``repro.kernels.packed_matmul``:
   the f32 activations are quantized offset-binary inside the kernel (the
   integer activations never stage through device memory).
 * :func:`packed_matmul` — (M, K) unsigned ints x (K, N) signed ints, the
-  weights packed into words as the kernel reads them.
+  weights packed into words as the kernel reads them.  Two kernels share
+  this entry, chosen by M (:data:`VARIANTS`): ``packed_matmul`` (one
+  output column per thread, at most 16 rows per block) for M <= 16, the
+  decode GEMV, and ``packed_matmul_tiled`` (64 x 128 block tiles, 8 x 4
+  register tiles per thread) above, the prefill chunks; :data:`KERNELS`
+  maps each to its launcher, so that the two can be timed at one shape.
 
 Both serve any legal :class:`ref.PackedDotSpec`.  A CUDA tensor launches
 the kernel (or raises); a CPU tensor runs the plain version beside each
@@ -17,14 +22,20 @@ wrapper, which is the only reason it ever does.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from . import build, ref
-from ._launch import require, split_k
+from ._launch import require, sm_count, split_k
 from .ref import INT4_EXACT, PackedDotSpec
 
 __all__ = [
+    "KERNELS",
+    "VARIANTS",
+    "TILED_MIN_M",
+    "variant_for",
     "packed_matmul",
     "packed_matmul_plain",
     "packed_matmul_prepacked",
@@ -33,6 +44,11 @@ __all__ = [
 
 _THREADS = 128           # output columns per block (csrc kThreads)
 _SMEM_BUDGET = 24 * 1024  # staged activation words per K tile (~8 blocks/SM)
+
+VARIANTS = ("packed_matmul", "packed_matmul_tiled")
+TILED_MIN_M = 17            # the tiled kernel takes M >= TILED_MIN_M
+_TILE_M, _TILE_N, _TILE_STAGES = 64, 128, 3  # csrc tiled::kBM, kBN, kStages
+_TILE_SMEM = 200 * 1024     # larger plans (very long chunks) keep the first kernel
 
 
 class _Params(ctypes.Structure):
@@ -189,10 +205,33 @@ def packed_matmul_plain(x_u: torch.Tensor, w_s: torch.Tensor,
     return ref.ref_packed_matmul(x_u, w_s, spec)
 
 
+@functools.cache
+def _tiled_geometry(spec: PackedDotSpec) -> tuple[int, int]:
+    """(tile_chunks, shared bytes) of the tiled kernel: whole chunks per
+    stage, at least 16 pairs and a multiple of 8 (16-byte aligned k), with
+    csrc ``tiled::Layout``'s shared-memory plan."""
+    per = math.lcm(spec.n_pairs, 8) // spec.n_pairs
+    while per * spec.n_pairs < 16:
+        per *= 2
+    sp = per * spec.n_pairs
+    kt = 2 * sp
+    mr = 2 if spec.uses_mr else 1
+    words = (_TILE_STAGES * (_TILE_M * (kt + 4) + kt * _TILE_N // 4)
+             + mr * sp * _TILE_N + mr * spec.n_columns * sp * _TILE_M)
+    return per, 4 * words
+
+
+def variant_for(m: int, spec: PackedDotSpec) -> str:
+    """The kernel :func:`packed_matmul` launches for ``m`` rows by default:
+    the tiled one above 16 rows, unless the plan's stage would not fit."""
+    return VARIANTS[m >= TILED_MIN_M and _tiled_geometry(spec)[1] <= _TILE_SMEM]
+
+
 def packed_matmul(x_u: torch.Tensor, w_s: torch.Tensor,
                   spec: PackedDotSpec = INT4_EXACT) -> torch.Tensor:
     """(M, K) unsigned ints x (K, N) signed ints -> (M, N) int32 via pair
-    packing; ragged K is handled as zero pairs (bit-transparent)."""
+    packing; ragged K is handled as zero pairs (bit-transparent).  Every
+    launch counts in ``launches`` and in ``variant_launches[variant]``."""
     if x_u.dim() != 2 or w_s.dim() != 2 or x_u.shape[1] != w_s.shape[0]:
         raise ValueError(
             f"packed_matmul wants (M, K) x (K, N), got {tuple(x_u.shape)} x "
@@ -200,15 +239,29 @@ def packed_matmul(x_u: torch.Tensor, w_s: torch.Tensor,
         )
     if not x_u.is_cuda:
         return packed_matmul_plain(x_u, w_s, spec)
+    return KERNELS[variant_for(x_u.shape[0], spec)](x_u, w_s, spec)
+
+
+def _int_operands(x_u: torch.Tensor, w_s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' operand types: int32 activations, int8 weights (plan
+    grids have bits_w <= 8), checked."""
     dev = x_u.device
-    m, k = x_u.shape
-    n = w_s.shape[1]
     if x_u.dtype != torch.int32:
         x_u = x_u.to(torch.int32)
     if w_s.dtype != torch.int8:
-        w_s = w_s.to(torch.int8)  # plan grids have bits_w <= 8
+        w_s = w_s.to(torch.int8)
     require(x_u, "x_u", torch.int32, dev, 2)
     require(w_s, "w_s", torch.int8, dev, 2)
+    return x_u, w_s
+
+
+def _packed_matmul_columns(x_u: torch.Tensor, w_s: torch.Tensor,
+                           spec: PackedDotSpec) -> torch.Tensor:
+    """The one-column-per-thread kernel, any M."""
+    x_u, w_s = _int_operands(x_u, w_s)
+    dev = x_u.device
+    m, k = x_u.shape
+    n = w_s.shape[1]
     n_chunks = -(-k // spec.chunk)
     bm, tile, per, splits = _geometry(m, n, n_chunks, spec, dev)
     prm = _params(spec, m, k, n, k, n_chunks, 0, tile, per)
@@ -221,7 +274,48 @@ def packed_matmul(x_u: torch.Tensor, w_s: torch.Tensor,
              bm, splits, _stream(dev))
     build.check(err, "packed_matmul")
     packed_matmul.launches += 1
+    packed_matmul.variant_launches["packed_matmul"] += 1
     return out
 
 
+def _packed_matmul_tiled(x_u: torch.Tensor, w_s: torch.Tensor,
+                         spec: PackedDotSpec) -> torch.Tensor:
+    """The tiled kernel, any M: x's K padded to a multiple of 4 with zero
+    activations, N to a multiple of 16 with zero weights (bit-transparent;
+    the main path's shapes never pad)."""
+    x_u, w_s = _int_operands(x_u, w_s)
+    dev = x_u.device
+    m, k = x_u.shape
+    n = w_s.shape[1]
+    n_chunks = -(-k // spec.chunk)
+    tile_chunks = _tiled_geometry(spec)[0]
+    pad_k, pad_n = (-k) % 4, (-n) % 16
+    if pad_k:
+        x_u = torch.nn.functional.pad(x_u, (0, pad_k))
+    if pad_n:
+        w_s = torch.nn.functional.pad(w_s, (0, pad_n))
+    np_ = n + pad_n
+    # split the chunks until about four blocks per SM are launched, each
+    # split whole stages, at least eight of them
+    blocks = -(-np_ // _TILE_N) * -(-m // _TILE_M)
+    stages = -(-n_chunks // tile_chunks)
+    splits = max(1, min(-(-4 * sm_count(dev.index or 0) // blocks), stages // 8))
+    per = -(-stages // splits) * tile_chunks
+    splits = -(-n_chunks // per)
+    prm = _params(spec, m, k + pad_k, np_, k, n_chunks, 0, tile_chunks, per)
+    out = _out(m, np_, splits, dev)
+    fn = build.library("packed_matmul").packed_matmul_tiled_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Params), ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x_u.data_ptr(), w_s.data_ptr(), out.data_ptr(), ctypes.byref(prm),
+             splits, _stream(dev))
+    build.check(err, "packed_matmul_tiled")
+    packed_matmul.launches += 1
+    packed_matmul.variant_launches["packed_matmul_tiled"] += 1
+    return out[:, :n] if pad_n else out
+
+
+KERNELS = {"packed_matmul": _packed_matmul_columns, "packed_matmul_tiled": _packed_matmul_tiled}
 packed_matmul.launches = 0
+packed_matmul.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -1,13 +1,15 @@
 """Serving CLI: batched requests through the fixed-slot engine.
 
   python -m repro_torch.launch.serve --arch qwen1.5-110b --smoke \\
-      --quant dsp_tuned --plan a4w4-p10-n32-mr+full-c2
+      --quant dsp_tuned --plan a4w4-p10-n32-mr+full-c2 --fuse all
 
 Runs on the card by default (``--device cuda``, the CUDA kernels);
 ``--device cpu`` serves the plain versions.  ``--plan NAME`` serves one
 tuned plan on every packable weight under ``--quant dsp_tuned``; it stands
 in for the reference's plan search (``--plan-bits``/``--error-budget``)
-until the tuner is ported (ROADMAP queue 6).
+until the tuner is ported (ROADMAP queue 6).  ``--fuse mlp`` joins up|gate
+at engine build, ``--fuse all`` also q|k|v (packed modes; each output
+column stays bit-identical).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import time
 
 import numpy as np
 
-from ..core.packed_params import iter_packable_weights
+from ..core.packed_params import fuse_projection_weights, iter_packable_weights
 from ..kernels.ref import spec_from_name
 from ..models import transformer as T
 from ..models.registry import get_config
@@ -43,6 +45,10 @@ def main(argv: list[str] | None = None) -> None:
                          "the exact int4 preset)")
     ap.add_argument("--no-prepack", dest="prepack", action="store_false",
                     help="dsp_tuned: pack the weight words on every call")
+    ap.add_argument("--fuse", dest="fuse_projections", default="none",
+                    choices=["none", "mlp", "all"],
+                    help="engine-build projection fusion for packed modes: "
+                         "'mlp' fuses up|gate, 'all' also fuses q|k|v")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain versions)")
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -57,12 +63,18 @@ def main(argv: list[str] | None = None) -> None:
     params = T.init_params(cfg, seed=0, device=args.device)
     plan_table = None
     if args.plan is not None:
+        # the table is keyed by the served tree's paths: fuse here, and the
+        # engine's own fusion finds nothing left to join
+        if args.fuse_projections != "none":
+            params = fuse_projection_weights(params,
+                                             fuse_attn=args.fuse_projections == "all")
         spec = spec_from_name(args.plan)
         plan_table = {p: spec for p, _ in iter_packable_weights(params)}
     serve_cfg = ServeConfig(
         n_slots=args.slots, max_len=args.max_len,
         prefill_chunk=args.prefill_chunk, quant_mode=args.quant,
-        prepack=args.prepack, temperature=args.temperature, top_k=args.top_k,
+        prepack=args.prepack, fuse_projections=args.fuse_projections,
+        temperature=args.temperature, top_k=args.top_k,
         top_p=args.top_p, seed=args.seed, device=args.device,
     )
     engine = Engine(cfg, params, serve_cfg, plan_table=plan_table)

@@ -54,7 +54,9 @@ class ModelConfig:
     # vlm (llava)
     n_patches: int = 0
 
-    # compilation / memory policy of the reference (kept as data)
+    # compilation / memory policy of the reference (scan_layers and remat
+    # kept as data); attention_chunk > 0 runs causal attention without a
+    # cache as online softmax over key chunks (layers.attention)
     scan_layers: bool = True
     remat: str = "dots"
     attention_chunk: int = 0

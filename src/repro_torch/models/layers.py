@@ -1,12 +1,13 @@
 """Transformer layers of the dense family, as functions on tensors.
 
 Counterpart of the reference's ``repro.models.layers``: ``rmsnorm``,
-``rope``, GQA ``attention`` (the causal no-cache branch and the dense-cache
-branch with per-row positions), the SwiGLU ``mlp`` and ``gelu_mlp``.  Every
-projection goes through :func:`core.packed_linear.apply_linear`.  Attention
-is plain PyTorch (einsum and softmax), as it is jnp in the reference; the
-paged, sliding-window and cross-attention branches are not ported yet and
-raise.
+``rope``, GQA ``attention`` (the causal no-cache branch, chunked online
+softmax under ``ModelConfig.attention_chunk``, and the dense-cache branch
+with per-row positions), the SwiGLU ``mlp`` and ``gelu_mlp``, each with the
+engine-build fused projections (``wqkv``, ``upgate``).  Every projection
+goes through :func:`core.packed_linear.apply_linear`.  Attention is plain
+PyTorch (einsum and softmax), as it is jnp in the reference; the paged,
+sliding-window and cross-attention branches are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -109,9 +110,18 @@ def attention(
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     spec = cfg.quant
-    q = apply_linear(params["wq"], x, spec).reshape(b, s, nh, hd)
-    k = apply_linear(params["wk"], x, spec).reshape(b, s, nkv, hd)
-    v = apply_linear(params["wv"], x, spec).reshape(b, s, nkv, hd)
+    if "wqkv" in params:
+        # engine-build fused projection (packed_params.fuse_projection_weights):
+        # bit-identical per column to the three unfused ones
+        qkv = apply_linear(params["wqkv"], x, spec)
+        q, k, v = qkv.split((nh * hd, nkv * hd, nkv * hd), dim=-1)
+        q = q.reshape(b, s, nh, hd)
+        k = k.reshape(b, s, nkv, hd)
+        v = v.reshape(b, s, nkv, hd)
+    else:
+        q = apply_linear(params["wq"], x, spec).reshape(b, s, nh, hd)
+        k = apply_linear(params["wk"], x, spec).reshape(b, s, nkv, hd)
+        v = apply_linear(params["wv"], x, spec).reshape(b, s, nkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -145,12 +155,46 @@ def attention(
 
     k = _repeat_kv(k, nh // nkv)
     v = _repeat_kv(v, nh // nkv)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * hd**-0.5
-    if mask is not None:
-        scores = scores + mask
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, nh * hd)
+    chunk = cfg.attention_chunk
+    if cache is None and causal and chunk and s > chunk and s % chunk == 0:
+        out = _chunked_causal_attention(q, k, v, chunk)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * hd**-0.5
+        if mask is not None:
+            scores = scores + mask
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out = out.reshape(b, s, nh * hd)
     return apply_linear(params["wo"], out, spec), new_cache
+
+
+def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              chunk: int) -> torch.Tensor:
+    """Online-softmax causal attention over key chunks, the reference's
+    ``_chunked_causal_attention``: the S x S scores never exist at once,
+    only (B, H, S, chunk).  Running max, denominator and accumulator in
+    f32, masked scores ``NEG_INF``, division by ``max(l, 1e-30)``.  Query
+    positions are the standard ``arange(S)``.  (B, S, H, hd) in and out."""
+    b, s, h, hd = q.shape
+    scale = hd**-0.5
+    q_pos = torch.arange(s, device=q.device)
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, hd), dtype=torch.float32, device=q.device)
+    for i in range(s // chunk):
+        keys = slice(i * chunk, (i + 1) * chunk)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k[:, keys]).to(torch.float32) * scale
+        ok = q_pos[keys][None, :] <= q_pos[:, None]
+        scores = torch.where(ok, scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v[:, keys].to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -171,6 +215,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 
 def mlp(params: Params, x: torch.Tensor, spec: LinearSpec) -> torch.Tensor:
+    if "upgate" in params:
+        # engine-build fused up|gate: one matmul, bit-identical per column
+        up, gate = apply_linear(params["upgate"], x, spec).chunk(2, dim=-1)
+        return apply_linear(params["down"], F.silu(gate) * up, spec)
     if "gate" not in params:  # 2-matrix GELU variant
         return gelu_mlp(params, x, spec)
     up = apply_linear(params["up"], x, spec)

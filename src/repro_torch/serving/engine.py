@@ -16,11 +16,15 @@ queued requests into free slots and finished sequences free them.
 
 ``quant_mode`` selects the weight path (``native``, ``int4_packed``,
 ``dsp_packed``, ``dsp_tuned``), converted once at build
-(``core.packed_params.quantize_for_serving``).  Until the tuner is ported
+(``core.packed_params.quantize_for_serving``); ``fuse_projections`` first
+joins q|k|v and up|gate in the packed modes
+(``core.packed_params.fuse_projection_weights``).  Until the tuner is ported
 (ROADMAP queue 6), the ``dsp_tuned`` plans come in as a constructor
-argument, ``plan_table={path: PackedDotSpec}``; a path absent from it
+argument, ``plan_table={path: PackedDotSpec}``, keyed by the paths of the
+tree that is served (the fused one when fusing); a path absent from it
 serves :data:`INT4_EXACT`.  Termination goes through one code path
-(``_finish_slot``): EOS, per-request ``max_new`` and the cache capacity.
+(``_finish_slot``): EOS, per-request ``max_new`` and the cache capacity;
+:meth:`Engine.cancel` aborts a request from outside.
 """
 
 from __future__ import annotations
@@ -32,7 +36,12 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..core.packed_params import SERVING_MODES, iter_packable_weights, quantize_for_serving
+from ..core.packed_params import (
+    SERVING_MODES,
+    fuse_projection_weights,
+    iter_packable_weights,
+    quantize_for_serving,
+)
 from ..device import resolve_device
 from ..kernels.ref import INT4_EXACT, PackedDotSpec
 from ..models import transformer as T
@@ -78,6 +87,9 @@ class ServeConfig:
     quant_mode: str = "native"
     use_kernel: bool | None = None
     prepack: bool = True       # dsp_tuned: build the pair words once
+    # packed modes: "mlp" fuses up|gate at build, "all" (or True) also
+    # q|k|v; each output column stays bit-identical
+    fuse_projections: bool | str = "none"
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -107,15 +119,21 @@ class ServeConfig:
             raise ValueError(
                 f"quant_mode {self.quant_mode!r} not in {SERVING_MODES}"
             )
+        if self.fuse_projections not in (True, False, "none", "mlp", "all"):
+            raise ValueError(
+                f"fuse_projections {self.fuse_projections!r} not in "
+                "(True, False, 'none', 'mlp', 'all')"
+            )
         if self.n_slots < 1 or self.max_len < 1 or self.prefill_chunk < 1:
             raise ValueError("n_slots, max_len and prefill_chunk must be >= 1")
 
 
 def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
                             use_kernel: bool, plan_table):
-    """Switch the arithmetic mode and quantize the weights onto it.
-    Returns ``(cfg, params, plan_table)``; for ``dsp_tuned`` the table is
-    resolved over every packable path (``INT4_EXACT`` where absent)."""
+    """Switch the arithmetic mode, fuse same-input projections if asked, and
+    quantize the weights onto the mode.  Returns ``(cfg, params,
+    plan_table)``; for ``dsp_tuned`` the table is resolved over every
+    packable path of the served (fused) tree, ``INT4_EXACT`` where absent."""
     if plan_table is not None and scfg.quant_mode != "dsp_tuned":
         raise ValueError(
             f"plan_table was given but quant_mode is {scfg.quant_mode!r}; "
@@ -128,6 +146,10 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
             cfg.quant, mode=scfg.quant_mode, use_kernel=use_kernel
         ),
     )
+    fuse = scfg.fuse_projections
+    if fuse not in (False, "none"):
+        params = fuse_projection_weights(params, fuse_attn=fuse in (True, "all"),
+                                         fuse_mlp=True)
     resolved: dict[str, PackedDotSpec] = {}
     if scfg.quant_mode == "dsp_tuned":
         plan_table = plan_table or {}
@@ -145,9 +167,10 @@ class Engine:
 
     :meth:`submit` queues a prompt (``admit=True`` pulls it into a free slot
     at once); :meth:`step` admits what fits, then decodes one token per
-    active slot and returns the rids finished this step; tokens are read
-    back from ``scheduler.requests`` or :meth:`drain_stream`, counters via
-    :meth:`stats`; :meth:`generate` wraps the loop for batch callers.
+    active slot and returns the rids finished this step; :meth:`cancel`
+    aborts a queued or running request; tokens are read back from
+    :attr:`outputs` or :meth:`drain_stream`, counters via :meth:`stats`;
+    :meth:`generate` wraps the loop for batch callers.
     ``params`` must already lie on ``serve_cfg.device``.
     """
 
@@ -341,6 +364,20 @@ class Engine:
         self.scheduler.finish(rid, reason)
         return rid
 
+    def _release_rid(self, rid: int) -> None:
+        """Free the slot of a cancelled running request (the scheduler's
+        accounting is done by ``Scheduler.cancel``)."""
+        for slot in np.flatnonzero(self._slot_rid == rid):
+            self.active[slot] = False
+            self._slot_rid[slot] = -1
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> None:
+        """Abort an unfinished request at once: a queued rid leaves the
+        queue without admission, a running rid's slot frees for the next
+        admission.  Tokens emitted before stay in :attr:`outputs`."""
+        if not self.scheduler.cancel(rid, reason):
+            self._release_rid(rid)
+
     @torch.inference_mode()
     def step(self) -> list[int]:
         """Admit what fits, then advance every active slot one token.
@@ -383,6 +420,13 @@ class Engine:
         return {r: list(self.scheduler.requests[r].tokens) for r in rids}
 
     # ---- introspection --------------------------------------------------
+    @property
+    def outputs(self) -> dict[int, list[int]]:
+        """rid -> tokens emitted so far, for every request that produced
+        any (finished, running or cancelled)."""
+        return {r.rid: r.tokens for r in self.scheduler.requests.values()
+                if r.tokens}
+
     def drain_stream(self) -> list[tuple[int, int]]:
         """Pop every ``(rid, token)`` emitted since the last drain."""
         out = list(self._stream)
