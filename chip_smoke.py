@@ -10,12 +10,14 @@ anything in it fails:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for sm_90a;
 3. each CUDA kernel against its plain PyTorch version on the card, on
-   seeded inputs (several plans, both activation forms, ragged M/N/K, the
-   M > 16 kernels at M 17, 33, 63 and with K split over blocks, and the
-   main path's shapes), bit-exact (max abs diff 0); then each kernel
-   timed with CUDA events at the main path's decode (M=4) and prefill
-   (M=64) shapes, beside its plain version, its bound and a library call,
-   and at M=64 beside the M <= 16 kernel;
+   seeded inputs (several plans, an mr plan whose even lane is read from
+   wsc (bits_w > p) among them, both activation forms, ragged M/N/K, the
+   M > 16 kernels at M 17, 33, 63 and with K split over blocks, the
+   M <= 16 kernels forced at M = 64, and the main path's shapes),
+   bit-exact (max abs diff 0); then each kernel timed with CUDA events at
+   the main path's decode (M=4) and prefill (M=64) shapes, beside its plain
+   version, its bound and a library call, and at M=64 beside the M <= 16
+   kernel;
 4. the main path: qwen1.5-110b at full width (depth cut to 4 layers,
    random seeded weights on the card) served greedily by the fixed-slot
    ``Engine`` in native, int4_packed, dsp_tuned (plan
@@ -23,8 +25,8 @@ anything in it fails:
    with ``fuse_projections="all"``, whose greedy tokens must equal the
    unfused run's; the kernels' launch counters are zeroed just before and
    read just after, and every kernel must have launched (the M <= 16
-   kernels in decode, the M > 16 ones in 64-row prefill chunks); logits
-   must be finite;
+   kernels in decode, the M > 16 ones, ``packed_matmul_prepacked_tiled``
+   among them, in 64-row prefill chunks); logits must be finite;
 5. whole-path agreement at the smoke config: the kernel engine and the
    plain-version engine emit identical greedy tokens in int4_packed,
    dsp_tuned (mr plan) and dsp_packed, with prefill chunks of 8 rows and
@@ -40,16 +42,20 @@ anything in it fails:
    oracle and ``torch.sum``; then the reference tests' shapes (odd T,
    several N, an out-of-range case against the plain version only) and
    the kernel timed beside ``torch.sum``;
-8. ``flash_attention`` on its two routes, each path with the launch counts
-   zeroed just before and read just after: bf16 at qwen1.5-110b's
-   attention width (B 1, H 64 from 8 KV heads, hd 128, S 4096) through
-   the tensor-core kernel, and f32 (B 1, H 8, S 4096, hd 128) through the
-   CUDA-core kernel; each against its plain version (bf16 also against
-   the tensor-core emulation) there, at the reference tests' shapes, at
-   hd 64 and at ragged S; then both timed beside
-   ``scaled_dot_product_attention`` and their bounds, and the bf16 kernel
-   at 8 heads with hd 64 and 128; both routes also checked at hd 16 and
-   120, which the kernels run at their hd 64 and 128 instantiations.
+8. ``flash_attention`` on its three routes, all on the tensor cores, each
+   path with the launch counts zeroed just before and read just after:
+   bf16 and f16 at qwen1.5-110b's attention width (B 1, H 64 from 8 KV
+   heads, hd 128, S 4096), and f32 (B 1, H 8, S 4096, hd 128), whose
+   operands the route splits into three bf16 terms; each against its plain
+   version and its route's emulation there, at the reference tests'
+   shapes, at hd 64 and at ragged S; then each timed beside
+   ``scaled_dot_product_attention`` in its dtype and its bounds (the f32
+   route's counting its own six products, ``bound_basis`` "design"; the
+   others' the function's), the f32 route beside the CUDA-core kernel it
+   replaced, which is held to the plain version too (at the f32 shape and
+   at ragged S with hd 120), and the bf16 kernel at 8 heads with hd 64 and
+   128; every route also checked at hd 16 and 120, which the kernels run
+   at their hd 64 and 128 instantiations.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -93,11 +99,17 @@ SNN_IN, SNN_HALF, SNN_STEPS, SNN_THRESHOLD = 512, 524288, 64, 64
 ATTN_SEQ = 4096
 # tolerances (atol, rtol) of the attention kernel against its plain
 # version: both compute in f32 and differ by summation order (atol 1e-5);
-# bf16 outputs, compared in f32, are rounded once each, so they may also
-# sit one bf16 step apart (rtol 2**-7, bf16's 8-bit significand)
-ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2**-7)}
-# phase 8's kernels line: the bf16 route (tensor cores) and the f32 route
-ROUTE_NAMES = {"bfloat16": "flash_attention", "float32": "flash_attention_f32"}
+# bf16 and f16 outputs, compared in f32, are rounded once each, so they may
+# also sit one step of their type apart (rtol 2**-7, bf16's 8-bit
+# significand; 2**-10, f16's 11-bit one)
+ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2**-7), "float16": (1e-5, 2**-10)}
+# phase 8's kernels line: one entry per route
+ROUTE_NAMES = {"bfloat16": "flash_attention", "float16": "flash_attention_f16",
+               "float32": "flash_attention_f32"}
+# the CUDA-core f32 kernel that the f32 route replaced: checked and timed
+CUDA_CORE_NAME = "flash_attention_f32_cuda_core"
+# phase 3: an mr plan whose even lane the kernels read from wsc (bits_w > p)
+WSC_PLAN = "a4w8-p7-n2-mr+full-c4"
 PACKED_MODES = ("int4_packed", "dsp_tuned", "dsp_packed")
 L2_BYTES = 50 * 2**20
 SLICE_N = 16384  # plain versions run in column slices to bound their memory
@@ -138,7 +150,8 @@ def zero_counts(K) -> None:
     for f in K.WRAPPERS.values():
         f.launches = 0
     for counts in (K.flash_attention.route_launches, K.int4_matmul.variant_launches,
-                   K.packed_matmul.variant_launches):
+                   K.packed_matmul.variant_launches,
+                   K.packed_matmul_prepacked.variant_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -146,9 +159,10 @@ def kernel_counts(K) -> dict:
     """Launches per kernel: the single-kernel wrappers', and the matmuls'
     per variant (the M <= 16 kernel under the wrapper's own name)."""
     counts = {name: f.launches for name, f in K.WRAPPERS.items()
-              if name not in ("int4_matmul", "packed_matmul")}
+              if name not in ("int4_matmul", "packed_matmul", "packed_matmul_prepacked")}
     counts.update(K.int4_matmul.variant_launches)
     counts.update(K.packed_matmul.variant_launches)
+    counts.update(K.packed_matmul_prepacked.variant_launches)
     return counts
 
 
@@ -158,21 +172,25 @@ def bound(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def packed_bound(bytes_moved: float, m: int, k: int, n: int,
-                 spec) -> tuple[float, str, dict]:
+def packed_bound(bytes_moved: float, m: int, k: int, n: int, spec,
+                 derived: bool = False) -> tuple[float, str, dict]:
     """Bound of the pair-packed kernels: the bytes, or the 32-bit integer
     work, whichever takes longer.  The work: one IMAD per packed pair and
     output per column stream (twice with an mr correction, whose
     contamination is a second product), at the IMAD rate; and the
     extraction of every chunk's field, 3 integer operations (align and
     round, arithmetic shift, accumulate), 3 more for the mr restore and 1
-    for a column's recombining shift, at the add/shift/logic rate.  The two
-    pipes issue side by side, so the slower one bounds.  Also returns each
-    term in ms."""
+    for a column's recombining shift, plus, where the even lane is
+    ``derived`` from the words, 6 per pair word (mask, sign flip, subtract,
+    subtract, shift, mask), at the add/shift/logic rate.  The two pipes
+    issue side by side, so the slower one bounds.  Also returns each term in
+    ms."""
     columns = spec.n_columns
     macs = m * (k // 2) * n * columns * (2 if spec.uses_mr else 1)
     fields = m * n * -(-k // spec.chunk) * columns
     ext = fields * (3 + (3 if spec.uses_mr else 0) + (1 if columns > 1 else 0))
+    if derived:
+        ext += 6 * (k // 2) * n
     terms = dict(bytes_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
                  imad_ms=macs / IMAD_PER_S * 1e3, extract_ms=ext / INT_ALU_PER_S * 1e3)
     t_ops = max(terms["imad_ms"], terms["extract_ms"])
@@ -196,17 +214,18 @@ def max_diff(torch, got, want) -> int:
 
 def check_kernels(torch, K, ref, checks: list) -> None:
     """Bit-exactness of every kernel against its plain version on seeded
-    inputs: several plans, both activation forms, ragged M/N/K; the M > 16
-    kernels also at ragged M (17, 33, 63), with K split over blocks, and
-    the M <= 16 kernels forced at M = 64.  Each check is named after the
-    kernel that ran it."""
+    inputs: several plans (one mr plan with bits_w > p, whose even lane is
+    read from wsc), both activation forms, ragged M/N/K; the M > 16 kernels
+    also at ragged M (17, 33, 63), with K split over blocks, and the M <= 16
+    kernels forced at M = 64.  Each check is named after the kernel that
+    ran it."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     plans = [ref.INT4_EXACT, ref.INT4_NAIVE, ref.INT4_MR_OVERPACKED,
              ref.spec_from_name(MAIN_PLAN), ref.spec_from_name("a4w4-p11-n16-full-c2"),
-             ref.spec_from_name("a8w8-p11-n1-full-c4")]
-    shapes = [(5, 200, 300), (17, 130, 129), (64, 1000, 515), (4, 8192, 1024),
-              (33, 8192, 1024), (63, 4096, 520)]
+             ref.spec_from_name("a8w8-p11-n1-full-c4"), ref.spec_from_name(WSC_PLAN)]
+    shapes = [(5, 200, 300), (3, 130, 129), (4, 200, 300), (17, 130, 129),
+              (64, 1000, 515), (4, 8192, 1024), (33, 8192, 1024), (63, 4096, 520)]
     for spec in plans:
         for m, k, n in shapes:
             x_u = torch.randint(0, 1 << spec.bits_a, (m, k), generator=gen,
@@ -216,19 +235,21 @@ def check_kernels(torch, K, ref, checks: list) -> None:
                                 dtype=torch.int32)
             packed = ref.pack_weight_words(w_s, spec)
             name = f"{spec.name()} M={m} K={k} N={n}"
-            got = K.packed_matmul_prepacked(x_u, packed.words, packed.wsc, spec)
-            want = K.packed_matmul_prepacked_plain(x_u, packed.words, packed.wsc, spec)
-            checks.append(("packed_matmul_prepacked", name + " int",
-                           max_diff(torch, got, want)))
             xf = torch.randn((m, k), generator=gen, device=dev)
             zp = 1 << (spec.bits_a - 1)
             scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
-            got = K.packed_matmul_prepacked(xf, packed.words, packed.wsc, spec,
-                                            x_scale=scale, x_zp=zp)
-            want = K.packed_matmul_prepacked_plain(xf, packed.words, packed.wsc, spec,
-                                                   x_scale=scale, x_zp=zp)
-            checks.append(("packed_matmul_prepacked", name + " fused",
-                           max_diff(torch, got, want)))
+            want_int = K.packed_matmul_prepacked_plain(x_u, packed.words, packed.wsc, spec)
+            want_fused = K.packed_matmul_prepacked_plain(xf, packed.words, packed.wsc, spec,
+                                                         x_scale=scale, x_zp=zp)
+            runs = [(K.prepacked_variant(m, spec), K.packed_matmul_prepacked)]
+            if m == 64:  # the one-column kernel forced where the tiled one runs
+                runs.append(("packed_matmul_prepacked",
+                             K.prepacked_kernels["packed_matmul_prepacked"]))
+            for variant, fn in runs:
+                got = fn(x_u, packed.words, packed.wsc, spec)
+                checks.append((variant, name + " int", max_diff(torch, got, want_int)))
+                got = fn(xf, packed.words, packed.wsc, spec, scale, zp)
+                checks.append((variant, name + " fused", max_diff(torch, got, want_fused)))
             w8 = w_s.to(torch.int8)
             want = K.packed_matmul_plain(x_u, w8, spec)
             checks.append((K.packed_variant(m, spec), name,
@@ -314,26 +335,32 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             def make_packed():
                 w = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int32)
                 return ref.pack_weight_words(w, main)
-            pw = _copies(make_packed, 6 * k * n)
+            pw = _copies(make_packed, 2 * k * n)  # the kernels read the words alone
             it = iter(range(10**9))
             ms = cuda_ms(torch, lambda: K.packed_matmul_prepacked(
                 xf, *pw[next(it) % len(pw)], main, x_scale=scale, x_zp=zp), 10)
+            parent_ms = None
+            if m > 16:
+                parent_ms = cuda_ms(torch, lambda: K.prepacked_kernels["packed_matmul_prepacked"](
+                    xf, *pw[next(it) % len(pw)], main, scale, zp), 10)
             t0 = time.perf_counter()
             want = by_columns(torch, lambda a, b: K.packed_matmul_prepacked_plain(
                 xf, pw[0].words[..., a:b], pw[0].wsc[..., a:b], main,
                 x_scale=scale, x_zp=zp), n)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
+            variant = K.prepacked_variant(m, main)
             got = K.packed_matmul_prepacked(xf, *pw[0], main, x_scale=scale, x_zp=zp)
-            checks.append(("packed_matmul_prepacked", f"main {MAIN_PLAN} M={m} K={k} N={n}",
+            checks.append((variant, f"main {MAIN_PLAN} M={m} K={k} N={n}",
                            max_diff(torch, got, want)))
             del pw, want, got
-            # needed bytes: x, scale, words (2 B/weight), the even lane of
-            # wsc (2 B/weight; the odd lane is never read), out
-            b_ms, b_by, terms = packed_bound(4 * m * k + 4 * m + 4 * k * n + 4 * m * n,
-                                             m, k, n, main)
-            rows.append(dict(kernel="packed_matmul_prepacked", plan=MAIN_PLAN, M=m, K=k,
-                             N=n, ms=ms, parent_ms=None, plain_ms=plain_ms, library_ms=None,
+            # needed bytes: x, scale, words (2 B/weight: the plan's even
+            # lane is derived from them, wsc is not read), out
+            b_ms, b_by, terms = packed_bound(4 * m * k + 4 * m + 2 * k * n + 4 * m * n,
+                                             m, k, n, main, derived=True)
+            rows.append(dict(kernel=variant, plan=MAIN_PLAN, M=m, K=k,
+                             N=n, ms=ms, parent_ms=parent_ms, plain_ms=plain_ms,
+                             library_ms=None,
                              library="none: the mr plan is not exact, no library "
                              "call computes its arithmetic", bound_ms=b_ms, bound_by=b_by,
                              bound_terms=terms))
@@ -603,85 +630,111 @@ def attention_path(torch, K, F, args, route: str) -> tuple:
 
 
 def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
-    """Causal attention at qwen1.5-110b's width through the bf16 route (the
-    tensor-core kernel), K/V expanded from the config's KV heads as the
-    model's attention does, then through the f32 route (the CUDA-core
-    kernel) at 8 heads; each path with the launch counts zeroed just before
-    and read just after.  Then the checks against the plain version and,
-    for bf16, the tensor-core emulation, at the reference tests' shapes and
-    ragged S; then the timings."""
+    """Causal attention at qwen1.5-110b's width through the bf16 and f16
+    routes, K/V expanded from the config's KV heads as the model's
+    attention does, then through the f32 route at 8 heads; each path with
+    the launch counts zeroed just before and read just after.  Then the
+    checks against the plain version and the route's emulation, at the
+    reference tests' shapes and ragged S; then the timings, the f32 route
+    beside the CUDA-core kernel it replaced."""
     cfg = P.get_config("qwen1.5-110b")
     h, kv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.hd, ATTN_SEQ
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((1, s, h, hd), generator=gen, device=dev, dtype=torch.bfloat16)
-    k = torch.randn((1, s, kv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
-    v = torch.randn((1, s, kv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
-    qh = q.transpose(1, 2).contiguous()  # (B, H, S, hd)
-    kh = P.repeat_kv(k, h // kv).transpose(1, 2).contiguous()
-    vh = P.repeat_kv(v, h // kv).transpose(1, 2).contiguous()
-    out, path_s, launches, routes = attention_path(torch, K, F, (qh, kh, vh),
-                                                   "flash_attention_sm90")
-    where = f"B=1 H={h} S={s} hd={hd} bf16"
-    log(f"attention {where} (K/V from {kv} heads): {path_s:.3f} s, launches "
-        f"{launches}, routes {routes}")
-    x32 = [torch.randn((1, kv, s, hd), generator=gen, device=dev) for _ in range(3)]
-    out32, path32_s, _, routes32 = attention_path(torch, K, F, x32, "flash_attention")
-    where32 = f"B=1 H={kv} S={s} hd={hd} float32"
-    log(f"attention {where32}: {path32_s:.3f} s, routes {routes32}")
+    paths = {}
+    for dt in (torch.bfloat16, torch.float16):
+        q = torch.randn((1, s, h, hd), generator=gen, device=dev, dtype=dt)
+        k = torch.randn((1, s, kv, hd), generator=gen, device=dev, dtype=dt)
+        v = torch.randn((1, s, kv, hd), generator=gen, device=dev, dtype=dt)
+        args = (q.transpose(1, 2).contiguous(),  # (B, H, S, hd)
+                P.repeat_kv(k, h // kv).transpose(1, 2).contiguous(),
+                P.repeat_kv(v, h // kv).transpose(1, 2).contiguous())
+        name = str(dt).removeprefix("torch.")
+        paths[name] = (args, f"B=1 H={h} S={s} hd={hd} {name}")
+        del q, k, v
+    x32 = tuple(torch.randn((1, kv, s, hd), generator=gen, device=dev) for _ in range(3))
+    paths["float32"] = (x32, f"B=1 H={kv} S={s} hd={hd} float32")
 
     def check(got, args, dtype: str, at: str) -> None:
         err, ok = attn_err(torch, got, F.plain_flash_attention(*args), dtype)
         attn_checks.append((ROUTE_NAMES[dtype], at + " vs plain", err, ok))
-        if dtype == "bfloat16":
-            err, ok = attn_err(torch, got, F.emulate_tensor_core_flash(*args), dtype)
-            attn_checks.append((ROUTE_NAMES[dtype], at + " vs emulation", err, ok))
+        emulate = (F.emulate_split_f32_flash if dtype == "float32"
+                   else F.emulate_tensor_core_flash)
+        err, ok = attn_err(torch, got, emulate(*args), dtype)
+        attn_checks.append((ROUTE_NAMES[dtype], at + " vs emulation", err, ok))
 
-    check(out, (qh, kh, vh), "bfloat16", where)
-    check(out32, x32, "float32", where32)
-    del out, out32
-    # the reference tests' shapes, then bf16 at hd 64 and ragged S (bq, bk
-    # dividing S, as the wrapper's contract asks; the kernels ignore them);
-    # then hd 16 (every smoke config) and 120 (h2o-danube-3-4b), which the
-    # kernels run at their hd 64 and 128 instantiations, on both routes
+    driven = {}
+    for name, (args, where) in paths.items():
+        route = F.ROUTES[args[0].dtype]
+        out, path_s, launches, routes = attention_path(torch, K, F, args, route)
+        log(f"attention {where}" + (f" (K/V from {kv} heads)" if name != "float32" else "")
+            + f": {path_s:.3f} s, launches {launches}, routes {routes}")
+        driven[name] = (path_s, routes[route])
+        check(out, args, name, where)
+        del out
+    # the reference tests' shapes, then hd 64 and ragged S (bq, bk dividing
+    # S, as the wrapper's contract asks; the kernels ignore them); then hd 16
+    # (every smoke config) and 120 (h2o-danube-3-4b), which the kernels run
+    # at their hd 64 and 128 instantiations, on every route
     gen = torch.Generator(device=dev).manual_seed(5)
-    for b, hh, ss, d, bq, bk, dt in ((1, 2, 512, 64, 256, 128, torch.float32),
-                                     (2, 1, 256, 128, 128, 128, torch.float32),
-                                     (1, 3, 96, 64, 32, 32, torch.float32),
-                                     (1, 4, 1024, 64, 256, 256, torch.bfloat16),
-                                     (1, 8, 4096, 64, 256, 256, torch.bfloat16),
-                                     (1, 3, 96, 128, 32, 32, torch.bfloat16),
-                                     (1, 2, 4160, 128, 64, 64, torch.bfloat16),
-                                     (1, 2, 512, 16, 256, 128, torch.float32),
-                                     (1, 2, 512, 120, 256, 128, torch.float32),
-                                     (1, 4, 1024, 16, 256, 256, torch.bfloat16),
-                                     (1, 8, 4096, 120, 256, 256, torch.bfloat16),
-                                     (1, 2, 4160, 120, 64, 64, torch.bfloat16)):
-        x = [torch.randn((b, hh, ss, d), generator=gen, device=dev, dtype=dt)
-             for _ in range(3)]
-        name = str(dt).removeprefix("torch.")
-        check(K.flash_attention(*x, bq=bq, bk=bk), x, name,
-              f"B={b} H={hh} S={ss} hd={d} {name}")
+    for b, hh, ss, d, bq, bk, dts in (
+            (1, 2, 512, 64, 256, 128, (torch.float32, torch.float16)),
+            (2, 1, 256, 128, 128, 128, (torch.float32, torch.float16)),
+            (1, 3, 96, 64, 32, 32, (torch.float32, torch.float16)),
+            (1, 4, 1024, 64, 256, 256, (torch.bfloat16, torch.float16)),
+            (1, 8, 4096, 64, 256, 256, (torch.bfloat16, torch.float16, torch.float32)),
+            (1, 3, 96, 128, 32, 32, (torch.bfloat16, torch.float16)),
+            (1, 2, 4160, 128, 64, 64, (torch.bfloat16, torch.float16, torch.float32)),
+            (1, 2, 512, 16, 256, 128, (torch.float32, torch.float16)),
+            (1, 2, 512, 120, 256, 128, (torch.float32, torch.float16)),
+            (1, 4, 1024, 16, 256, 256, (torch.bfloat16,)),
+            (1, 8, 4096, 120, 256, 256, (torch.bfloat16, torch.float32)),
+            (1, 2, 4160, 120, 64, 64, (torch.bfloat16, torch.float16))):
+        for dt in dts:
+            x = [torch.randn((b, hh, ss, d), generator=gen, device=dev, dtype=dt)
+                 for _ in range(3)]
+            name = str(dt).removeprefix("torch.")
+            check(K.flash_attention(*x, bq=bq, bk=bk), x, name,
+                  f"B={b} H={hh} S={ss} hd={d} {name}")
+    # the CUDA-core f32 kernel, on no route but timed below: held to the
+    # plain version at the f32 path's shape and at ragged S with hd 120
+    x = [torch.randn((1, 2, 4160, 120), generator=gen, device=dev) for _ in range(3)]
+    for args, where in ((x32, paths["float32"][1]), (x, "B=1 H=2 S=4160 hd=120 float32")):
+        err, ok = attn_err(torch, K.flash_kernels["flash_attention"](*args),
+                           F.plain_flash_attention(*args), "float32")
+        attn_checks.append((CUDA_CORE_NAME, where + " vs plain", err, ok))
     torch.cuda.synchronize()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, args, path, iters, rate in (
-            ("flash_attention", (qh, kh, vh), (path_s, launches, routes), 20,
-             BF16_TENSOR_OPS_PER_S),
-            ("flash_attention_f32", x32, (path32_s, None, routes32), 10,
-             CUDA_CORE_OPS_PER_S)):
+    for name, (args, where) in paths.items():
         bb, hh, ss, d = args[0].shape
         ops = 2 * 2 * bb * hh * (ss * ss / 2) * d  # QK^T and PV over the causal half
-        b_ms, b_by = bound(4 * args[0].numel() * args[0].element_size(), ops, rate)
-        rows[name] = dict(
+        _, terms, p_terms = F.TC_DESIGN[args[0].dtype]
+        # the route's own products: (term pairs of S + term pairs of P V) / 2
+        # per product of the function, each a bf16/f16 tensor-core product
+        own = sum(i + j < terms for i in range(terms) for j in range(terms))
+        own_pv = sum(i + j < p_terms for i in range(p_terms) for j in range(terms))
+        design_ops = ops * (own + own_pv) / 2
+        iters = 10 if name == "float32" else 20
+        row = dict(
             ms=cuda_ms(torch, lambda: K.flash_attention(*args), iters),
             plain_ms=cuda_ms(torch, lambda: F.plain_flash_attention(*args), 2),
             library_ms=cuda_ms(torch, lambda: sdpa(*args, is_causal=True), iters),
-            bound_ms=b_ms, bound_by=b_by, path_s=path[0], routes=path[2],
-            launches=path[2][F.ROUTES[args[0].dtype]],
-            at=where if name == "flash_attention" else where32)
-        if name == "flash_attention":  # it issues P V twice (P_hi, P_lo): 1.5x
-            rows[name]["split_bound_ms"] = 1.5 * ops / rate * 1e3
+            path_s=driven[name][0], launches=driven[name][1], at=where,
+            design_bound_ms=design_ops / BF16_TENSOR_OPS_PER_S * 1e3)
+        nbytes = 4 * args[0].numel() * args[0].element_size()
+        if name == "float32":
+            # the least time: the design's own products on the tensor cores
+            # (the f32 function at the CUDA-core rate beside it)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, design_ops, BF16_TENSOR_OPS_PER_S)
+            row["bound_basis"] = "design"
+            row["cuda_core_bound_ms"] = ops / CUDA_CORE_OPS_PER_S * 1e3
+            row["cuda_core_kernel_ms"] = cuda_ms(
+                torch, lambda: K.flash_kernels["flash_attention"](*args), iters)
+        else:
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops, BF16_TENSOR_OPS_PER_S)
+            row["bound_basis"] = "function"
+        rows[ROUTE_NAMES[name]] = row
     # the bf16 kernel at 8 heads, hd 64 and 128: the same scores, half the
     # products at hd 64, so the ratio shows what the per-score work weighs;
     # hd 16 and 120 at the hd 64 and 128 instantiations (their columns past
@@ -693,9 +746,11 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
             torch, lambda: K.flash_attention(*x), 20)
     for name, r in rows.items():
         log(f"time {name} {r['at']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}"
-            + (f", {r['split_bound_ms']:.4f} ms for the split's own operations"
-               if "split_bound_ms" in r else "")
+            f"{r['bound_by']}, counting the {r['bound_basis']}'s operations; "
+            f"{r['design_bound_ms']:.4f} ms for the route's own products"
+            + (f", {r['cuda_core_bound_ms']:.4f} ms for the function on the CUDA cores; "
+               f"the CUDA-core kernel {r['cuda_core_kernel_ms']:.4f} ms"
+               if "cuda_core_kernel_ms" in r else "")
             + f"; plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
             f"{r['library_ms']:.4f} ms)")
     r = rows["flash_attention"]
@@ -750,11 +805,12 @@ def main(argv: list[str] | None = None) -> int:
         int4_matmul, int4_matmul_plain = i4.int4_matmul, i4.int4_matmul_plain
         int4_variant, packed_variant = i4.variant_for, pm.variant_for
         int4_kernels, packed_kernels = i4.KERNELS, pm.KERNELS
+        prepacked_variant, prepacked_kernels = pm.prepacked_variant_for, pm.PREPACKED_KERNELS
         packed_matmul, packed_matmul_plain = pm.packed_matmul, pm.packed_matmul_plain
         packed_matmul_prepacked = pm.packed_matmul_prepacked
         packed_matmul_prepacked_plain = pm.packed_matmul_prepacked_plain
         addpack_accumulate = A.addpack_accumulate
-        flash_attention = F.flash_attention
+        flash_attention, flash_kernels = F.flash_attention, F.KERNELS
         WRAPPERS = {"int4_matmul": i4.int4_matmul, "packed_matmul": pm.packed_matmul,
                     "packed_matmul_prepacked": pm.packed_matmul_prepacked,
                     "addpack_accumulate": A.addpack_accumulate,
@@ -795,7 +851,8 @@ def main(argv: list[str] | None = None) -> int:
     launches = kernel_counts(K)
     log(f"main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
     need = {"int4_matmul": "int4_packed", "int4_matmul_tc": "int4_packed",
-            "packed_matmul_prepacked": "dsp_tuned", "packed_matmul": "dsp_packed",
+            "packed_matmul_prepacked": "dsp_tuned",
+            "packed_matmul_prepacked_tiled": "dsp_tuned", "packed_matmul": "dsp_packed",
             "packed_matmul_tiled": "dsp_packed"}
     for kernel, mode in need.items():
         if serving_out[mode]["launches"][kernel] < 1 or launches[kernel] < 1:
@@ -865,6 +922,8 @@ def main(argv: list[str] | None = None) -> int:
                            "src/repro/kernels/int4_matmul.py:61"),
         "packed_matmul_prepacked": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                                     "src/repro/kernels/packed_matmul.py:277"),
+        "packed_matmul_prepacked_tiled": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
+                                          "src/repro/kernels/packed_matmul.py:277"),
         "packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                           "src/repro/kernels/packed_matmul.py:127"),
         "packed_matmul_tiled": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
@@ -886,27 +945,30 @@ def main(argv: list[str] | None = None) -> int:
     def attn_max(name: str, against: str) -> float:
         return max(c[2] for c in attn_checks if c[0] == name and c[1].endswith(against))
 
-    for name, r, err, source, replaces in (
-            ("addpack_accumulate", snn,
-             max(c[2] for c in checks if c[0] == "addpack_accumulate"),
-             "src/repro_torch/kernels/csrc/addpack_acc.cu",
-             "src/repro/kernels/addpack_acc.py:66"),
-            ("flash_attention", attn["flash_attention"],
-             attn_max("flash_attention", "vs plain"),
-             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-             "src/repro/kernels/flash_attention.py:72"),
-            ("flash_attention_f32", attn["flash_attention_f32"],
-             attn_max("flash_attention_f32", "vs plain"),
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:72")):
+    kernels.append({
+        "name": "addpack_accumulate", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/addpack_acc.cu",
+        "replaces": "src/repro/kernels/addpack_acc.py:66", "launches": snn["launches"],
+        "max_abs_err": max(c[2] for c in checks if c[0] == "addpack_accumulate"),
+        "ms": snn["ms"], "plain_ms": snn["plain_ms"], "bound_ms": snn["bound_ms"],
+        "bound_by": snn["bound_by"], "library_ms": snn["library_ms"], "at": snn["at"],
+    })
+    for name in ROUTE_NAMES.values():
+        r = attn[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": r["launches"], "max_abs_err": err, "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "launches": r["launches"], "max_abs_err": attn_max(name, "vs plain"),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": r["at"],
+            "bound_basis": r["bound_basis"], "design_bound_ms": r["design_bound_ms"],
+            "max_abs_err_emulation": attn_max(name, "vs emulation"),
         })
-    kernels[-2].update(split_bound_ms=attn["flash_attention"]["split_bound_ms"],
-                       max_abs_err_emulation=attn_max("flash_attention", "vs emulation"))
+        if "cuda_core_kernel_ms" in r:
+            kernels[-1].update(cuda_core_kernel_ms=r["cuda_core_kernel_ms"],
+                               cuda_core_bound_ms=r["cuda_core_bound_ms"],
+                               cuda_core_max_abs_err=attn_max(CUDA_CORE_NAME, "vs plain"))
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps({

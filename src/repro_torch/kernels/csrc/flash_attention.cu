@@ -1,8 +1,11 @@
 // Causal flash-attention forward for Hopper (sm_90a) on the CUDA cores: q, k,
 // v (B*H, S, hd) f32 -> out (B*H, S, hd) f32, hd a multiple of 8 up to 128
 // (instantiated at HD = 64 for hd <= 64, else 128; a narrower head's missing
-// columns load as zero, add nothing to the scores and are not stored).  bf16
-// inputs go to the tensor-core kernel, flash_attention_sm90.cu.
+// columns load as zero, add nothing to the scores and are not stored).  It is
+// on no route since the f32 route moved to the tensor cores
+// (flash_attention_sm90.cu, operands split into three bf16 terms); it stays
+// callable (flash_attention.KERNELS["flash_attention"]) to be timed beside
+// that route.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (Pallas body _kernel) for f32 inputs, and computes what it computes: q
@@ -27,9 +30,8 @@
 // P is written transposed into the K tile's buffer (K is dead by then) and
 // read as one 16-byte broadcast per key for P V.  Reads are 16-byte vectors
 // laid out so that a warp touches the fewest shared-memory wavefronts (the K
-// tile's rows are padded by 4 floats).  Not yet used: tensor cores (keeping
-// f32 inputs within atol 1e-5 on bf16 wgmma needs each operand split into
-// three bf16 terms), a pipelined K/V load, split-K for long rows.
+// tile's rows are padded by 4 floats).  Not used: a pipelined K/V load, split-K for
+// long rows.
 //
 // Contract checked by the Python wrapper: q, k, v, out contiguous, 16-byte
 // aligned, f32, on the current device; hd a multiple of 8 up to 128.

@@ -20,45 +20,58 @@
 // the extraction's arithmetic right shifts run on int32.
 //
 // What bounds it on this card: at decode shapes (M = 4) it streams 2 bytes
-// of words per weight, plus 2 bytes of even-lane wsc for mr plans, and does
-// 2*M (4*M for mr) 32-bit multiply-adds per weight and column: HBM bytes
-// bound it.  At prefill shapes (M = 64) the 32-bit IMADs on the CUDA cores
-// bound it: there is no tensor-core form of a wrapping int32 x int32
-// product.
+// of words per weight (plus 2 bytes of wsc's even lane for the mr plans
+// with bits_w > p, below) and does 2*M (4*M for mr) 32-bit multiply-adds
+// per weight and column: HBM bytes bound it.  At prefill shapes (M = 64) the
+// 32-bit IMADs on the CUDA cores bound it: there is no tensor-core form of a
+// wrapping int32 x int32 product.
+//
+// The even lane.  An mr plan's contamination needs w_even mod 2**mr_bits
+// per pair.  Where bits_w <= p the pair word w_odd + (w_even << p) holds it:
+// w_odd = sext_p(word mod 2**p), w_even = (word - w_odd) >> p (even_lane),
+// so the prepacked kernels derive it and never read wsc; the other mr plans
+// (bits_w > p) read wsc's even lane.
 //
 // What the design does about it, at M <= 16 (packed_matmul_kernel, both
-// entries): each thread owns one output column and
-// reads its words once per M tile, coalesced across the warp; activation
-// pair words for the block's M tile are built once per K tile into shared
-// memory (quantized there from f32 in the fused form, so the integer
-// activations never touch HBM) in a row-fastest layout, so one 128-bit
-// broadcast load feeds four rows' multiply-adds, and each weight word is
-// loaded once for up to four column streams.  Extraction happens
-// exactly every n_pairs products (a K tile holds whole chunks).  The pair
-// loop is unrolled four deep so several word loads are in flight, and
-// layers too narrow to put about eight blocks on every SM split the chunks
-// over blocks; the partial sums meet with integer atomicAdd, exact and
-// order-independent mod 2**32.  Not yet done: a
-// compact wsc stream (only its even lane and mr_bits of it are read), TMA,
-// a load pipeline.
+// entries): activation pair words for the block's M tile are built once per
+// K tile into shared memory (quantized there from f32 in the fused form, so
+// the integer activations never touch HBM) in a row-fastest layout, so one
+// 128-bit broadcast load feeds four rows' multiply-adds, and each weight word
+// is loaded once for up to four column streams.  Each thread owns one output
+// column, or four for prepacked words at M <= 4 (one 16-byte load brings
+// four columns' words: with the even lane derived a pair costs one load, and
+// one column's 4-byte loads left HBM at about a third of its rate), and
+// reads its words once per M tile, coalesced across the warp.  Extraction
+// happens exactly every n_pairs products (a K tile holds whole chunks).  The
+// pair loop is unrolled (four deep, eight for prepacked words) so several
+// word loads are in flight, and layers too narrow to put about eight blocks
+// on every SM split the chunks over blocks; the partial sums meet with
+// integer atomicAdd, exact and order-independent mod 2**32.  Not yet done:
+// TMA, a load pipeline.
 //
-// At M > 16 the per-call entry (packed_matmul) runs packed_matmul_tiled_kernel
-// instead.  What held the one-column kernel back there: a block held at most
-// 16 rows, so M = 64 streamed the weights four times and packed every weight
-// word four times; every pair product cost a shared-memory load besides its
+// At M > 16 both entries run a tiled kernel instead: packed_matmul_tiled_kernel
+// (per-call entry) and packed_matmul_prepacked_tiled_kernel (prepacked).
+// What held the one-column kernel back there: a block held at most 16 rows,
+// so M = 64 streamed the weights four times and packed every weight word
+// four times; every pair product cost a shared-memory load besides its
 // IMAD; and each thread's single column gave the scheduler little
 // independent work.  What the tiled design does: a block covers 64 rows x
 // 128 columns, so the weights stream from HBM once per launch, through a
-// 3-stage cp.async ring that also carries the int32 activation tile; each
-// stage is turned once per block into weight pair words and activation pair
-// words in shared memory; each thread then owns an 8-row x 4-column
-// register tile, so one 128-bit load of four weight words and two of eight
-// activation words feed 32 IMADs.  Extraction happens exactly every n_pairs
-// products (a stage holds whole chunks); without an mr correction it is one
-// arithmetic shift and an add per field, the alignment folded into the
-// weight words and the rounding into the partial sum's start (see
-// note above packed_matmul_tiled_kernel).  The IMADs then bound it: a wrapping int32 x int32 product has no tensor-core
-// form, so it stays behind an int8 tensor-core GEMM of the same shape.
+// 3-stage cp.async ring that also carries the activation tile; each stage is
+// turned once per block into activation pair words in shared memory (the
+// prepacked kernel quantizes the f32 tile there first: round(x / scale) +
+// zp, half to even, clipped, K padded with f32 zeros as the reference pads),
+// and into weight pair words (per-call entry; the prepacked words are read
+// from the ring as they are stored) and even weights (mr plans); each
+// thread then owns an 8-row x 4-column register tile, so one 128-bit load
+// of four weight words and two of eight activation words feed 32 IMADs.
+// Extraction happens exactly every n_pairs products (a stage holds whole
+// chunks); without an mr correction it is one arithmetic shift and an add
+// per field, the alignment folded into the weight words and the rounding
+// into the partial sum's start (see note above packed_matmul_tiled_kernel).
+// The IMADs then bound it: a wrapping int32 x int32 product has no
+// tensor-core form, so it stays behind an int8 tensor-core GEMM of the same
+// shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +83,8 @@ struct PackedParams {
   int n_chunks, n_pairs, p, n_columns, col_bits_a, mr_bits;
   int rounds_half_up, uses_mr, zp;
   int tile_chunks, chunks_per_split;
+  int reads_wsc;        // prepacked mr plans: 1 = read wsc's even lane, 0 = derive it
+  int cols_per_thread;  // one-column kernel: output columns a thread (1, or 4 at BM = 4)
 };
 
 namespace {
@@ -95,6 +110,14 @@ __device__ __forceinline__ int32_t extract(uint32_t partial_u, uint32_t contam,
   return e;
 }
 
+// w_even mod 2**mr_bits from the pair word w_odd + (w_even << p), for plans
+// with bits_w <= p (and p + mr_bits <= 32): w_odd = sext_p(word mod 2**p)
+// since |w_odd| < 2**(p-1) or w_odd = -2**(p-1), and (word - w_odd) >> p is
+// w_even mod 2**(32-p).  Spares the wsc stream its 2 bytes per weight.
+__device__ __forceinline__ uint32_t even_lane(uint32_t word, int p, uint32_t mrmask) {
+  return ((word - (uint32_t)sext(word, p)) >> p) & mrmask;
+}
+
 // One activation value as an unsigned integer.  Fused form: the f32
 // activation quantized offset-binary, round half to even (rintf) after an
 // IEEE division, exactly the reference's round(x / scale) + zp, clipped.
@@ -113,18 +136,22 @@ __device__ __forceinline__ uint32_t load_x(const void* x, const float* scale, in
 }
 
 // RAW = weights are (kw, N) int8 signed ints packed on the fly; otherwise
-// prepacked words (+ wsc for mr plans).  NCP = activation columns served
-// per pass over the weights (a divisor of n_columns): each weight word is
-// loaded once per pass and multiplied into NCP column streams.
-template <int BM, int NCP, bool FUSED, bool RAW>
+// prepacked words (+ wsc for mr plans whose even lane is not derived).  NCP
+// = activation columns served per pass over the weights (a divisor of
+// n_columns): each weight word is loaded once per pass and multiplied into
+// NCP column streams.  CPT = output columns per thread (prepacked only, N
+// % CPT == 0): one 16-byte load brings four columns' words, so that a
+// thread keeps four times the bytes in flight per load.
+template <int BM, int NCP, int CPT, bool FUSED, bool RAW>
 __global__ void __launch_bounds__(kThreads)
 packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_scale,
                      const int32_t* __restrict__ words, const int32_t* __restrict__ wsc,
                      const int8_t* __restrict__ w_raw, int32_t* __restrict__ out,
                      Params P) {
+  static_assert(CPT == 1 || (CPT == 4 && !RAW), "four columns a thread: prepacked words");
   extern __shared__ __align__(16) uint32_t smem[];
   const int m0 = blockIdx.x * BM;
-  const int n = blockIdx.y * kThreads + threadIdx.x;
+  const int n = (blockIdx.y * kThreads + threadIdx.x) * CPT;  // the thread's first column
   const int c_begin = blockIdx.z * P.chunks_per_split;
   const int c_end = min(c_begin + P.chunks_per_split, P.n_chunks);
   const int chunk = 2 * P.n_pairs;
@@ -135,9 +162,11 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
   const uint32_t cmask = P.n_columns == 1 ? 0xFFFFFFFFu : (1u << P.col_bits_a) - 1u;
   const uint32_t mrmask = (1u << P.mr_bits) - 1u;
 
-  uint32_t acc[BM];
+  uint32_t acc[BM][CPT];
 #pragma unroll
-  for (int m = 0; m < BM; ++m) acc[m] = 0u;
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) acc[m][u] = 0u;
 
   for (int ct = c_begin; ct < c_end; ct += P.tile_chunks) {
     const int nct = min(P.tile_chunks, c_end - ct);
@@ -168,27 +197,44 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
       for (int j0 = 0; j0 < P.n_columns; j0 += NCP) {
         for (int cc = 0; cc < nct; ++cc) {
           const int c = ct + cc;
-          uint32_t part[NCP][BM], cont[NCP][BM];
+          uint32_t part[NCP][BM][CPT], cont[NCP][BM][CPT];
 #pragma unroll
           for (int jj = 0; jj < NCP; ++jj)
 #pragma unroll
-            for (int m = 0; m < BM; ++m) part[jj][m] = cont[jj][m] = 0u;
+            for (int m = 0; m < BM; ++m)
+#pragma unroll
+              for (int u = 0; u < CPT; ++u) part[jj][m][u] = cont[jj][m][u] = 0u;
           // unrolled so that several pairs' word loads are in flight at once
-#pragma unroll 4
+          // (eight deep for the prepacked words: one load a pair)
+          constexpr int kUnroll = RAW ? 4 : 8;
+#pragma unroll kUnroll
           for (int pp = 0; pp < P.n_pairs; ++pp) {
-            uint32_t wword, weven;
+            uint32_t wword[CPT], weven[CPT];
             if (RAW) {
               const int k = c * chunk + 2 * pp;
               const int32_t w0 = k < P.kw ? (int32_t)w_raw[(size_t)k * P.N + n] : 0;
               const int32_t w1 = k + 1 < P.kw ? (int32_t)w_raw[(size_t)(k + 1) * P.N + n] : 0;
-              wword = (uint32_t)w1 + ((uint32_t)w0 << P.p);
-              weven = (uint32_t)w0 & mrmask;
+              wword[0] = (uint32_t)w1 + ((uint32_t)w0 << P.p);
+              weven[0] = (uint32_t)w0 & mrmask;
             } else {
               const size_t wi = ((size_t)c * P.n_pairs + pp) * P.N + n;
-              wword = (uint32_t)__ldg(words + wi);
-              weven = P.uses_mr
-                  ? (uint32_t)__ldg(wsc + (((size_t)c * P.n_pairs + pp) * 2) * P.N + n) & mrmask
-                  : 0u;
+              const size_t ei = (((size_t)c * P.n_pairs + pp) * 2) * P.N + n;
+              if constexpr (CPT == 4) {
+                const uint4 w4 = __ldg(reinterpret_cast<const uint4*>(words + wi));
+                wword[0] = w4.x, wword[1] = w4.y, wword[2] = w4.z, wword[3] = w4.w;
+                if (P.uses_mr && P.reads_wsc) {
+                  const uint4 e4 = __ldg(reinterpret_cast<const uint4*>(wsc + ei));
+                  weven[0] = e4.x, weven[1] = e4.y, weven[2] = e4.z, weven[3] = e4.w;
+                }
+              } else {
+                wword[0] = (uint32_t)__ldg(words + wi);
+                if (P.uses_mr && P.reads_wsc) weven[0] = (uint32_t)__ldg(wsc + ei);
+              }
+#pragma unroll
+              for (int u = 0; u < CPT; ++u)
+                weven[u] = !P.uses_mr ? 0u
+                           : P.reads_wsc ? weven[u] & mrmask
+                                         : even_lane(wword[u], P.p, mrmask);
             }
 #pragma unroll
             for (int jj = 0; jj < NCP; ++jj) {
@@ -198,20 +244,26 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
 #pragma unroll
               for (int m4 = 0; m4 < BM / 4; ++m4) {
                 const uint4 a = a4[m4];
-                part[jj][4 * m4 + 0] += a.x * wword;
-                part[jj][4 * m4 + 1] += a.y * wword;
-                part[jj][4 * m4 + 2] += a.z * wword;
-                part[jj][4 * m4 + 3] += a.w * wword;
+#pragma unroll
+                for (int u = 0; u < CPT; ++u) {
+                  part[jj][4 * m4 + 0][u] += a.x * wword[u];
+                  part[jj][4 * m4 + 1][u] += a.y * wword[u];
+                  part[jj][4 * m4 + 2][u] += a.z * wword[u];
+                  part[jj][4 * m4 + 3][u] += a.w * wword[u];
+                }
               }
               if (P.uses_mr) {
                 const uint4* o4 = reinterpret_cast<const uint4*>(xo + base);
 #pragma unroll
                 for (int m4 = 0; m4 < BM / 4; ++m4) {
                   const uint4 a = o4[m4];
-                  cont[jj][4 * m4 + 0] += a.x * weven;
-                  cont[jj][4 * m4 + 1] += a.y * weven;
-                  cont[jj][4 * m4 + 2] += a.z * weven;
-                  cont[jj][4 * m4 + 3] += a.w * weven;
+#pragma unroll
+                  for (int u = 0; u < CPT; ++u) {
+                    cont[jj][4 * m4 + 0][u] += a.x * weven[u];
+                    cont[jj][4 * m4 + 1][u] += a.y * weven[u];
+                    cont[jj][4 * m4 + 2][u] += a.z * weven[u];
+                    cont[jj][4 * m4 + 3][u] += a.w * weven[u];
+                  }
                 }
               }
             }
@@ -221,7 +273,10 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
             const uint32_t shift = (uint32_t)((j0 + jj) * P.col_bits_a);
 #pragma unroll
             for (int m = 0; m < BM; ++m)
-              acc[m] += (uint32_t)extract(part[jj][m], cont[jj][m] & mrmask, P) << shift;
+#pragma unroll
+              for (int u = 0; u < CPT; ++u)
+                acc[m][u] += (uint32_t)extract(part[jj][m][u], cont[jj][m][u] & mrmask, P)
+                             << shift;
           }
         }
       }
@@ -233,19 +288,22 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
 #pragma unroll
     for (int m = 0; m < BM; ++m) {
       if (m0 + m < P.M) {
-        int32_t* o = out + (size_t)(m0 + m) * P.N + n;
-        if (split) atomicAdd(o, (int32_t)acc[m]);
-        else *o = (int32_t)acc[m];
+#pragma unroll
+        for (int u = 0; u < CPT; ++u) {
+          int32_t* o = out + (size_t)(m0 + m) * P.N + n + u;
+          if (split) atomicAdd(o, (int32_t)acc[m][u]);
+          else *o = (int32_t)acc[m][u];
+        }
       }
     }
   }
 }
 
-template <int BM, int NCP, bool FUSED, bool RAW>
+template <int BM, int NCP, int CPT, bool FUSED, bool RAW>
 int launch(const void* x, const float* x_scale, const int32_t* words, const int32_t* wsc,
            const int8_t* w_raw, int32_t* out, const Params& P, int splits,
            cudaStream_t stream) {
-  auto kernel = packed_matmul_kernel<BM, NCP, FUSED, RAW>;
+  auto kernel = packed_matmul_kernel<BM, NCP, CPT, FUSED, RAW>;
   const size_t smem = 2u * (size_t)P.n_columns * P.tile_chunks * P.n_pairs * BM *
                       sizeof(uint32_t);
   if (smem > 48u * 1024u) {
@@ -253,23 +311,34 @@ int launch(const void* x, const float* x_scale, const int32_t* words, const int3
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((P.M + BM - 1) / BM, (P.N + kThreads - 1) / kThreads, splits);
+  const int cols = kThreads * CPT;  // output columns per block
+  dim3 grid((P.M + BM - 1) / BM, (P.N + cols - 1) / cols, splits);
   kernel<<<grid, kThreads, smem, stream>>>(x, x_scale, words, wsc, w_raw, out, P);
   return (int)cudaGetLastError();
 }
 
 // Columns per pass: the largest of 4, 2, 1 dividing n_columns whose
-// NCP x BM accumulators stay within 32 registers' worth per array.
+// NCP x BM accumulators stay within 32 registers' worth per array; four
+// output columns a thread (P.cols_per_thread, prepacked) at BM = 4.
 template <int BM, bool FUSED, bool RAW>
 int dispatch_ncp(const void* x, const float* x_scale, const int32_t* words,
                  const int32_t* wsc, const int8_t* w_raw, int32_t* out, const Params& P,
                  int splits, cudaStream_t stream) {
+  if constexpr (BM == 4 && !RAW) {
+    if (P.cols_per_thread == 4) {
+      if (P.n_columns % 2 == 0)
+        return launch<BM, 2, 4, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits,
+                                            stream);
+      return launch<BM, 1, 4, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+    }
+  }
+  if (P.cols_per_thread != 1) return (int)cudaErrorInvalidValue;
   if (BM <= 8 && P.n_columns % 4 == 0)
-    return launch<BM, (BM <= 8 ? 4 : 2), FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P,
-                                                      splits, stream);
+    return launch<BM, (BM <= 8 ? 4 : 2), 1, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P,
+                                                         splits, stream);
   if (P.n_columns % 2 == 0)
-    return launch<BM, 2, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
-  return launch<BM, 1, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+    return launch<BM, 2, 1, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
+  return launch<BM, 1, 1, FUSED, RAW>(x, x_scale, words, wsc, w_raw, out, P, splits, stream);
 }
 
 template <bool FUSED, bool RAW>
@@ -511,6 +580,249 @@ int launch_tiled(const int32_t* x, const int8_t* w, int32_t* out, const Params& 
   return (int)cudaGetLastError();
 }
 
+// ---- prepacked entry at M > 16: the same 2-D register tiles ----------------------
+
+// Shared-memory plan of the prepacked tiled kernel, in 32-bit words: the
+// ring carries the activation tile (f32 or int32), the stage's weight pair
+// words as they are stored, and wsc's even lane where it is read; the
+// compute buffers hold the even weights mod 2**mr_bits, and the activation
+// pair words and odd slices per column.
+struct PrepackedLayout {
+  int kt, sp, xs;
+  int ring_x, ring_w, ring_e, stage;
+  int we, aw, xo;
+  int total;
+
+  __host__ __device__ PrepackedLayout(int pairs, int n_columns, bool mr, bool wsc) {
+    sp = pairs;
+    kt = 2 * sp;
+    xs = kt + 4;
+    ring_x = kBM * xs;
+    ring_w = sp * kBN;                    // [sp][kBN] words
+    ring_e = wsc ? sp * kBN : 0;          // [sp][kBN] wsc even lane
+    stage = ring_x + ring_w + ring_e;
+    we = kStages * stage;                 // [sp][kBN] even weights (mr)
+    aw = we + (mr ? sp * kBN : 0);        // [n_columns][sp][kBM] pair words
+    xo = aw + n_columns * sp * kBM;       // [n_columns][sp][kBM] odd slices (mr)
+    total = xo + (mr ? n_columns * sp * kBM : 0);
+  }
+};
+
+// FUSED: x is f32, quantized per stage as round(x / scale) + zp (half to
+// even), clipped to [0, 2 zp - 1]; else x holds int32 unsigned integers.
+// MR: an mr plan; WSC: its even lane read from wsc (bits_w > p), else
+// derived from the words.  NP, PB, NC, TCH as in packed_matmul_tiled_kernel.
+template <bool FUSED, bool MR, bool WSC, int NP, int PB, int NC, int TCH>
+__global__ void __launch_bounds__(kThreads)
+packed_matmul_prepacked_tiled_kernel(const void* __restrict__ x,
+                                     const float* __restrict__ x_scale,
+                                     const int32_t* __restrict__ words,
+                                     const int32_t* __restrict__ wsc,
+                                     int32_t* __restrict__ out, Params P) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_pairs = NP > 0 ? NP : P.n_pairs;
+  const int p = PB > 0 ? PB : P.p;
+  const int n_columns = NC > 0 ? NC : P.n_columns;
+  const int tile_chunks = TCH > 0 ? TCH : P.tile_chunks;
+  const PrepackedLayout L(tile_chunks * n_pairs, n_columns, MR, WSC);
+  const int chunk = 2 * n_pairs;
+  const int tid = threadIdx.x;
+  const int tr = tid >> 5, tc = tid & 31;  // rows tr*8 .. +7, columns tc*4 .. +3
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int c_begin = blockIdx.z * P.chunks_per_split;
+  const int c_end = min(c_begin + P.chunks_per_split, P.n_chunks);
+  const int k_begin = c_begin * chunk;
+  const int k_lim = min(c_end * chunk, P.K);  // activations past it read as 0
+  const int row_lim = c_end * n_pairs;        // word rows (chunk, pair) past it read as 0
+  const int n_tiles = (c_end - c_begin + tile_chunks - 1) / tile_chunks;
+
+  auto load_stage = [&](int i) {
+    uint32_t* sx = smem + (i % kStages) * L.stage;
+    uint32_t* sw = sx + L.ring_x;
+    const int k0 = k_begin + i * L.kt;
+    const int xq = L.kt / 4;  // 16-byte chunks per activation row
+    for (int c = tid; c < kBM * xq; c += kThreads) {
+      const int r = c / xq, q = c % xq;
+      const int k = k0 + 4 * q;
+      const bool ok = m0 + r < P.M && k < k_lim;
+      cp_async16(sx + r * L.xs + 4 * q,
+                 static_cast<const int32_t*>(x) + (ok ? (size_t)(m0 + r) * P.K + k : 0),
+                 ok ? 16 : 0);
+    }
+    const int r0 = (c_begin + i * tile_chunks) * n_pairs;  // the stage's first word row
+    for (int c = tid; c < L.sp * (kBN / 4); c += kThreads) {
+      const int r = c / (kBN / 4), q = c % (kBN / 4);
+      const int n = n0 + 4 * q;
+      const bool ok = r0 + r < row_lim && n < P.N;
+      cp_async16(sw + r * kBN + 4 * q, words + (ok ? (size_t)(r0 + r) * P.N + n : 0),
+                 ok ? 16 : 0);
+      if (WSC)  // even lane: wsc[chunk][pair][0][n]
+        cp_async16(sw + L.ring_w + r * kBN + 4 * q,
+                   wsc + (ok ? (size_t)(r0 + r) * 2 * P.N + n : 0), ok ? 16 : 0);
+    }
+  };
+
+  const uint32_t cmask = n_columns == 1 ? 0xFFFFFFFFu : (1u << P.col_bits_a) - 1u;
+  const uint32_t mrmask = (1u << P.mr_bits) - 1u;
+  // non-mr: the words are shifted by 32 - 2p as they are read, and partial
+  // sums start at the shifted rounding offset (see packed_matmul_tiled_kernel)
+  const int align = MR ? 0 : 32 - 2 * p;
+  const uint32_t part0 = !MR && P.rounds_half_up ? 1u << (31 - p) : 0u;
+  const float zp = (float)P.zp, qmax = (float)(2 * P.zp - 1);
+
+  uint32_t acc[kTM][kTN];
+#pragma unroll
+  for (int m = 0; m < kTM; ++m)
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) acc[m][n] = 0u;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();  // stage i landed; the previous stage's buffers are consumed
+    if (i + kStages - 1 < n_tiles) load_stage(i + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const uint32_t* sx = smem + (i % kStages) * L.stage;
+    const uint32_t* sw = sx + L.ring_x;
+    if (MR) {  // even weights mod 2**mr_bits, read or derived once per block
+      for (int it = tid; it < L.sp * (kBN / 4); it += kThreads) {
+        const uint4 v = reinterpret_cast<const uint4*>(WSC ? sw + L.ring_w : sw)[it];
+        reinterpret_cast<uint4*>(smem + L.we)[it] =
+            WSC ? make_uint4(v.x & mrmask, v.y & mrmask, v.z & mrmask, v.w & mrmask)
+                : make_uint4(even_lane(v.x, p, mrmask), even_lane(v.y, p, mrmask),
+                             even_lane(v.z, p, mrmask), even_lane(v.w, p, mrmask));
+      }
+    }
+    // activation pair words x[2q] + (x[2q+1] << p) per column slice, rows
+    // fastest; the fused form quantizes the pair first
+    for (int it = tid; it < L.sp * kBM; it += kThreads) {
+      const int m = it % kBM, q = it / kBM;
+      const uint2 v = *reinterpret_cast<const uint2*>(sx + m * L.xs + 2 * q);
+      uint32_t v0 = v.x, v1 = v.y;
+      if (FUSED) {
+        const float s = m0 + m < P.M ? x_scale[m0 + m] : 1.0f;
+        const float q0 = fminf(fmaxf(rintf(__uint_as_float(v.x) / s) + zp, 0.0f), qmax);
+        const float q1 = fminf(fmaxf(rintf(__uint_as_float(v.y) / s) + zp, 0.0f), qmax);
+        v0 = (uint32_t)(int32_t)q0;
+        v1 = (uint32_t)(int32_t)q1;
+      }
+      for (int j = 0; j < n_columns; ++j) {
+        const uint32_t s0 = (v0 >> (j * P.col_bits_a)) & cmask;
+        const uint32_t s1 = (v1 >> (j * P.col_bits_a)) & cmask;
+        smem[L.aw + (j * L.sp + q) * kBM + m] = s0 + (s1 << p);
+        if (MR) smem[L.xo + (j * L.sp + q) * kBM + m] = s1 & mrmask;
+      }
+    }
+    __syncthreads();
+    const uint4* ww4 = reinterpret_cast<const uint4*>(sw) + tc;
+    const uint4* we4 = reinterpret_cast<const uint4*>(smem + L.we) + tc;
+    for (int j = 0; j < n_columns; ++j) {
+      const uint4* aw4 = reinterpret_cast<const uint4*>(smem + L.aw + j * L.sp * kBM) + 2 * tr;
+      const uint4* xo4 = reinterpret_cast<const uint4*>(smem + L.xo + j * L.sp * kBM) + 2 * tr;
+      const int shift = j * P.col_bits_a;
+#pragma unroll
+      for (int cc = 0; cc < tile_chunks; ++cc) {
+        uint32_t part[kTM][kTN], cont[kTM][kTN];
+#pragma unroll
+        for (int m = 0; m < kTM; ++m)
+#pragma unroll
+          for (int n = 0; n < kTN; ++n) {
+            part[m][n] = part0;
+            cont[m][n] = 0u;
+          }
+#pragma unroll 4
+        for (int pp = 0; pp < n_pairs; ++pp) {
+          const int q = cc * n_pairs + pp;
+          const uint4 wv = ww4[q * (kBN / 4)];
+          const uint4 a0 = aw4[q * (kBM / 4)], a1 = aw4[q * (kBM / 4) + 1];
+          const uint32_t wr[kTN] = {wv.x << align, wv.y << align, wv.z << align, wv.w << align};
+          const uint32_t ar[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int m = 0; m < kTM; ++m)
+#pragma unroll
+            for (int n = 0; n < kTN; ++n) part[m][n] += ar[m] * wr[n];
+          if (MR) {
+            const uint4 ev = we4[q * (kBN / 4)];
+            const uint4 o0 = xo4[q * (kBM / 4)], o1 = xo4[q * (kBM / 4) + 1];
+            const uint32_t er[kTN] = {ev.x, ev.y, ev.z, ev.w};
+            const uint32_t orr[kTM] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+            for (int m = 0; m < kTM; ++m)
+#pragma unroll
+              for (int n = 0; n < kTN; ++n) cont[m][n] += orr[m] * er[n];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kTM; ++m)
+#pragma unroll
+          for (int n = 0; n < kTN; ++n) {
+            const int32_t e = MR ? extract(part[m][n], cont[m][n] & mrmask, P)
+                                 : (int32_t)part[m][n] >> (32 - p);
+            acc[m][n] += NC == 1 ? (uint32_t)e : (uint32_t)e << shift;
+          }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int m = 0; m < kTM; ++m) {
+    const int row = m0 + kTM * tr + m;
+    if (row >= P.M) continue;
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) {
+      const int col = n0 + kTN * tc + n;
+      if (col >= P.N) continue;
+      int32_t* o = out + (size_t)row * P.N + col;
+      if (split) atomicAdd(o, (int32_t)acc[m][n]);
+      else *o = (int32_t)acc[m][n];
+    }
+  }
+}
+
+template <bool FUSED, bool MR, bool WSC, int NP, int PB, int NC, int TCH>
+int launch_prepacked_tiled(const void* x, const float* x_scale, const int32_t* words,
+                           const int32_t* wsc, int32_t* out, const Params& P, int splits,
+                           cudaStream_t stream) {
+  auto kernel = packed_matmul_prepacked_tiled_kernel<FUSED, MR, WSC, NP, PB, NC, TCH>;
+  const size_t smem =
+      (size_t)PrepackedLayout(P.tile_chunks * P.n_pairs, P.n_columns, MR, WSC).total *
+      sizeof(uint32_t);
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((P.N + kBN - 1) / kBN, (P.M + kBM - 1) / kBM, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(x, x_scale, words, wsc, out, P);
+  return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int dispatch_prepacked_tiled(const void* x, const float* x_scale, const int32_t* words,
+                             const int32_t* wsc, int32_t* out, const Params& P, int splits,
+                             cudaStream_t stream) {
+  if (P.uses_mr && P.reads_wsc)
+    return launch_prepacked_tiled<FUSED, true, true, 0, 0, 0, 0>(x, x_scale, words, wsc, out, P,
+                                                                  splits, stream);
+  if (P.uses_mr) {
+    if (P.n_pairs == 32 && P.p == 10 && P.n_columns == 2 && P.tile_chunks == 1)
+      // a4w4-p10-n32-mr+full-c2, dsp_tuned's plan
+      return launch_prepacked_tiled<FUSED, true, false, 32, 10, 2, 1>(x, x_scale, words, wsc,
+                                                                       out, P, splits, stream);
+    return launch_prepacked_tiled<FUSED, true, false, 0, 0, 0, 0>(x, x_scale, words, wsc, out, P,
+                                                                   splits, stream);
+  }
+  return launch_prepacked_tiled<FUSED, false, false, 0, 0, 0, 0>(x, x_scale, words, wsc, out, P,
+                                                                  splits, stream);
+}
+
 }  // namespace tiled
 
 }  // namespace
@@ -530,6 +842,26 @@ extern "C" int packed_matmul_prepacked_launch(const void* x, const void* x_scale
   auto st = static_cast<cudaStream_t>(stream);
   if (s != nullptr) return dispatch_bm<true, false>(bm, x, s, wd, wc, nullptr, o, *P, splits, st);
   return dispatch_bm<false, false>(bm, x, nullptr, wd, wc, nullptr, o, *P, splits, st);
+}
+
+// Prepacked entry at M > 16 (2-D register tiles): x (M, K) f32 (x_scale !=
+// nullptr: quantized per stage with zp = P.zp) or int32, K % 4 == 0; words
+// (n_chunks, n_pairs, N) with N % 4 == 0; wsc read only where P.reads_wsc.
+// P.tile_chunks chunks per pipeline stage, P.chunks_per_split a multiple of
+// it.  Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int packed_matmul_prepacked_tiled_launch(const void* x, const void* x_scale,
+                                                    const void* words, const void* wsc,
+                                                    void* out, const PackedParams* P,
+                                                    int splits, void* stream) {
+  if (P->K % 4 || P->N % 4 || P->p > 15 || splits < 1 || (P->reads_wsc && wsc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto* s = static_cast<const float*>(x_scale);
+  const auto* wd = static_cast<const int32_t*>(words);
+  const auto* wc = static_cast<const int32_t*>(wsc);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (s != nullptr) return tiled::dispatch_prepacked_tiled<true>(x, s, wd, wc, o, *P, splits, st);
+  return tiled::dispatch_prepacked_tiled<false>(x, nullptr, wd, wc, o, *P, splits, st);
 }
 
 // Per-call entry: x int32 unsigned activations (M, K), w (K, N) int8 signed

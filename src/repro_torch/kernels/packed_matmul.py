@@ -5,7 +5,14 @@ Counterparts of the reference's ``repro.kernels.packed_matmul``:
 * :func:`packed_matmul_prepacked` — activations x weights packed once by
   :func:`ref.pack_weight_words` -> (M, N) int32.  With ``x_scale``/``x_zp``
   the f32 activations are quantized offset-binary inside the kernel (the
-  integer activations never stage through device memory).
+  integer activations never stage through device memory).  Two kernels
+  share this entry too, chosen by M (:data:`PREPACKED_VARIANTS`,
+  :func:`prepacked_variant_for`, :data:`PREPACKED_KERNELS`): the
+  one-column kernel at M <= 16 and ``packed_matmul_prepacked_tiled`` (the
+  tiled design on the stored words, the quantize fused per stage) above.
+  Both derive the mr contamination's even weights from the pair words
+  where ``bits_w <= p`` (:func:`even_lane`) and read ``wsc`` only for the
+  other mr plans.
 * :func:`packed_matmul` — (M, K) unsigned ints x (K, N) signed ints, the
   weights packed into words as the kernel reads them.  Two kernels share
   this entry, chosen by M (:data:`VARIANTS`): ``packed_matmul`` (one
@@ -34,8 +41,13 @@ from .ref import INT4_EXACT, PackedDotSpec
 __all__ = [
     "KERNELS",
     "VARIANTS",
+    "PREPACKED_KERNELS",
+    "PREPACKED_VARIANTS",
     "TILED_MIN_M",
     "variant_for",
+    "prepacked_variant_for",
+    "derives_even_lane",
+    "even_lane",
     "packed_matmul",
     "packed_matmul_plain",
     "packed_matmul_prepacked",
@@ -46,6 +58,7 @@ _THREADS = 128           # output columns per block (csrc kThreads)
 _SMEM_BUDGET = 24 * 1024  # staged activation words per K tile (~8 blocks/SM)
 
 VARIANTS = ("packed_matmul", "packed_matmul_tiled")
+PREPACKED_VARIANTS = ("packed_matmul_prepacked", "packed_matmul_prepacked_tiled")
 TILED_MIN_M = 17            # the tiled kernel takes M >= TILED_MIN_M
 _TILE_M, _TILE_N, _TILE_STAGES = 64, 128, 3  # csrc tiled::kBM, kBN, kStages
 _TILE_SMEM = 200 * 1024     # larger plans (very long chunks) keep the first kernel
@@ -57,29 +70,34 @@ class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "M", "K", "N", "kw", "n_chunks", "n_pairs", "p", "n_columns",
         "col_bits_a", "mr_bits", "rounds_half_up", "uses_mr", "zp",
-        "tile_chunks", "chunks_per_split",
+        "tile_chunks", "chunks_per_split", "reads_wsc", "cols_per_thread",
     )]
 
 
 def _geometry(m: int, n: int, n_chunks: int, spec: PackedDotSpec,
-              device: torch.device) -> tuple[int, int, int, int]:
-    """(bm, tile_chunks, chunks_per_split, splits) for one launch."""
+              device: torch.device, prepacked: bool = False) -> tuple[int, int, int, int, int]:
+    """(bm, tile_chunks, chunks_per_split, splits, cols_per_thread) for one
+    launch of the one-column kernel: four output columns a thread for
+    prepacked words at M <= 4 (16-byte word loads) where N % 4 == 0."""
     bm = 4 if m <= 4 else 8 if m <= 8 else 16
+    cpt = 4 if prepacked and bm == 4 and n % 4 == 0 else 1
     per_chunk = 2 * spec.n_columns * spec.n_pairs * bm * 4  # bytes staged
     tile = max(1, min(n_chunks, _SMEM_BUDGET // per_chunk))
-    blocks = -(-m // bm) * -(-n // _THREADS)
+    blocks = -(-m // bm) * -(-n // (_THREADS * cpt))
     per = split_k(blocks, n_chunks, device)
-    return bm, tile, per, -(-n_chunks // per)
+    return bm, tile, per, -(-n_chunks // per), cpt
 
 
 def _params(spec: PackedDotSpec, m: int, k: int, n: int, kw: int,
-            n_chunks: int, zp: int, tile: int, per: int) -> _Params:
+            n_chunks: int, zp: int, tile: int, per: int, cpt: int = 1) -> _Params:
     return _Params(
         M=m, K=k, N=n, kw=kw, n_chunks=n_chunks, n_pairs=spec.n_pairs,
         p=spec.p, n_columns=spec.n_columns, col_bits_a=spec.col_bits_a,
         mr_bits=spec.mr_bits, rounds_half_up=int(spec.rounds_half_up),
         uses_mr=int(spec.uses_mr), zp=zp, tile_chunks=tile,
         chunks_per_split=per,
+        reads_wsc=int(spec.uses_mr and not derives_even_lane(spec)),
+        cols_per_thread=cpt,
     )
 
 
@@ -95,6 +113,28 @@ def _stream(device: torch.device) -> int:
 
 
 # ---- prepacked entry -------------------------------------------------------
+
+
+def derives_even_lane(spec: PackedDotSpec) -> bool:
+    """Whether the kernels derive an mr plan's contamination weights
+    ``w_even mod 2**mr_bits`` from the pair words instead of reading
+    ``wsc``: where ``bits_w <= p`` (the odd lane fits the word's low p bits
+    signed) and ``p + mr_bits <= 32``."""
+    return spec.uses_mr and spec.bits_w <= spec.p and spec.p + spec.mr_bits <= 32
+
+
+def even_lane(words: torch.Tensor, spec: PackedDotSpec) -> torch.Tensor:
+    """``w_even mod 2**mr_bits`` from pair words ``w_odd + (w_even << p)``
+    (int32, wrapping), as the kernels derive it: ``w_odd = sext_p(word mod
+    2**p)`` and ``(word - w_odd) >> p``.  Equals ``wsc[..., 0, :] & mask``
+    wherever :func:`derives_even_lane` holds."""
+    if not derives_even_lane(spec):
+        raise ValueError(f"{spec.name()}: the even lane is not recoverable from its words "
+                         "(needs an mr plan with bits_w <= p and p + mr_bits <= 32)")
+    w = words.to(torch.int64)
+    sign = 1 << (spec.p - 1)
+    odd = ((w & ((1 << spec.p) - 1)) ^ sign) - sign
+    return (((w - odd) >> spec.p) & ref.contamination_mask(spec)).to(torch.int32)
 
 
 def quantize_rows(x: torch.Tensor, x_scale: torch.Tensor, x_zp: int) -> torch.Tensor:
@@ -139,7 +179,8 @@ def packed_matmul_prepacked(
     ``x_scale`` ((M, 1) or (M,) f32, the row absmax scale over the full K)
     and ``x_zp`` fuse the activation quantize: ``x`` is then the raw f32
     activation.  Without them ``x`` holds unsigned integers.  ``wsc`` is
-    required for mr plans.  ``K`` may be shorter than the words' K.
+    required for mr plans.  ``K`` may be shorter than the words' K.  Every
+    launch counts in ``launches`` and in ``variant_launches[variant]``.
     """
     if x.dim() != 2 or words.dim() != 3 or words.shape[1] != spec.n_pairs:
         raise ValueError(
@@ -162,7 +203,16 @@ def packed_matmul_prepacked(
         )
     if not x.is_cuda:
         return packed_matmul_prepacked_plain(x, words, wsc, spec, x_scale, x_zp)
+    variant = prepacked_variant_for(m, spec)
+    return PREPACKED_KERNELS[variant](x, words, wsc, spec, x_scale, x_zp)
+
+
+def _prepacked_operands(x, words, wsc, spec, x_scale) -> bool:
+    """Check what the prepacked kernels are handed; returns whether the
+    activation quantize is fused."""
     dev = x.device
+    m = x.shape[0]
+    n_chunks, _, n = words.shape
     fused = x_scale is not None
     if fused:
         require(x, "x", torch.float32, dev, 2)
@@ -177,23 +227,101 @@ def packed_matmul_prepacked(
         if tuple(wsc.shape) != (n_chunks, spec.n_pairs, 2, n):
             raise ValueError(f"wsc has shape {tuple(wsc.shape)}, expected "
                              f"{(n_chunks, spec.n_pairs, 2, n)}")
-    bm, tile, per, splits = _geometry(m, n, n_chunks, spec, dev)
+    return fused
+
+
+def _prepacked_columns(x, words, wsc, spec, x_scale=None, x_zp=None) -> torch.Tensor:
+    """The one-column prepacked kernel (one output column a thread, four at
+    M <= 4), any M."""
+    fused = _prepacked_operands(x, words, wsc, spec, x_scale)
+    dev = x.device
+    m, k = x.shape
+    n_chunks, _, n = words.shape
+    bm, tile, per, splits, cpt = _geometry(m, n, n_chunks, spec, dev, prepacked=True)
     prm = _params(spec, m, k, n, n_chunks * spec.chunk, n_chunks,
-                  x_zp or 0, tile, per)
+                  x_zp or 0, tile, per, cpt)
     out = _out(m, n, splits, dev)
     fn = build.library("packed_matmul").packed_matmul_prepacked_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_Params), ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), x_scale.data_ptr() if fused else None,
-             words.data_ptr(), wsc.data_ptr() if spec.uses_mr else None,
+             words.data_ptr(), wsc.data_ptr() if prm.reads_wsc else None,
              out.data_ptr(), ctypes.byref(prm), bm, splits, _stream(dev))
     build.check(err, "packed_matmul_prepacked")
     packed_matmul_prepacked.launches += 1
+    packed_matmul_prepacked.variant_launches["packed_matmul_prepacked"] += 1
     return out
 
 
+def _prepacked_tiled(x, words, wsc, spec, x_scale=None, x_zp=None) -> torch.Tensor:
+    """The tiled prepacked kernel, any M: x's K padded to a multiple of 4
+    (f32 zeros before the fused quantize, as the reference pads, or integer
+    zeros), the words' N (and wsc's, where read) to a multiple of 4 with
+    zero words (bit-transparent; the main path's shapes never pad)."""
+    fused = _prepacked_operands(x, words, wsc, spec, x_scale)
+    dev = x.device
+    m, k = x.shape
+    n_chunks, _, n = words.shape
+    tile_chunks = _prepacked_tiled_geometry(spec)[0]
+    reads_wsc = spec.uses_mr and not derives_even_lane(spec)
+    pad_k, pad_n = (-k) % 4, (-n) % 4
+    if pad_k:
+        x = torch.nn.functional.pad(x, (0, pad_k))
+    if pad_n:
+        words = torch.nn.functional.pad(words, (0, pad_n))
+        if reads_wsc:
+            wsc = torch.nn.functional.pad(wsc, (0, pad_n))
+    np_ = n + pad_n
+    blocks = -(-np_ // _TILE_N) * -(-m // _TILE_M)
+    stages = -(-n_chunks // tile_chunks)
+    splits = max(1, min(-(-4 * sm_count(dev.index or 0) // blocks), stages // 8))
+    per = -(-stages // splits) * tile_chunks
+    splits = -(-n_chunks // per)
+    prm = _params(spec, m, k + pad_k, np_, n_chunks * spec.chunk, n_chunks,
+                  x_zp or 0, tile_chunks, per)
+    out = _out(m, np_, splits, dev)
+    fn = build.library("packed_matmul").packed_matmul_prepacked_tiled_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_Params), ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), x_scale.data_ptr() if fused else None, words.data_ptr(),
+             wsc.data_ptr() if reads_wsc else None, out.data_ptr(), ctypes.byref(prm),
+             splits, _stream(dev))
+    build.check(err, "packed_matmul_prepacked_tiled")
+    packed_matmul_prepacked.launches += 1
+    packed_matmul_prepacked.variant_launches["packed_matmul_prepacked_tiled"] += 1
+    return out[:, :n] if pad_n else out
+
+
+@functools.cache
+def _prepacked_tiled_geometry(spec: PackedDotSpec) -> tuple[int, int]:
+    """(tile_chunks, shared bytes) of the tiled prepacked kernel: the
+    stage of :func:`_tiled_geometry`, with csrc ``tiled::PrepackedLayout``'s
+    shared-memory plan."""
+    per = _tiled_geometry(spec)[0]
+    sp = per * spec.n_pairs
+    mr = spec.uses_mr
+    ring = _TILE_M * (2 * sp + 4) + sp * _TILE_N * (2 if mr and not derives_even_lane(spec)
+                                                    else 1)
+    words = (_TILE_STAGES * ring + (sp * _TILE_N if mr else 0)
+             + (2 if mr else 1) * spec.n_columns * sp * _TILE_M)
+    return per, 4 * words
+
+
+def prepacked_variant_for(m: int, spec: PackedDotSpec) -> str:
+    """The kernel :func:`packed_matmul_prepacked` launches for ``m`` rows:
+    the tiled one above 16 rows, unless the plan's stage would not fit."""
+    return PREPACKED_VARIANTS[m >= TILED_MIN_M
+                              and _prepacked_tiled_geometry(spec)[1] <= _TILE_SMEM]
+
+
+PREPACKED_KERNELS = {"packed_matmul_prepacked": _prepacked_columns,
+                     "packed_matmul_prepacked_tiled": _prepacked_tiled}
+
+
 packed_matmul_prepacked.launches = 0
+packed_matmul_prepacked.variant_launches = dict.fromkeys(PREPACKED_VARIANTS, 0)
 
 
 # ---- per-call entry ----------------------------------------------------------
@@ -263,7 +391,7 @@ def _packed_matmul_columns(x_u: torch.Tensor, w_s: torch.Tensor,
     m, k = x_u.shape
     n = w_s.shape[1]
     n_chunks = -(-k // spec.chunk)
-    bm, tile, per, splits = _geometry(m, n, n_chunks, spec, dev)
+    bm, tile, per, splits, _ = _geometry(m, n, n_chunks, spec, dev)
     prm = _params(spec, m, k, n, k, n_chunks, 0, tile, per)
     out = _out(m, n, splits, dev)
     fn = build.library("packed_matmul").packed_matmul_launch

@@ -26,9 +26,13 @@ KERNELS = {
     "int4_matmul (M tile 16)": ("int4_matmul", "int4_matmul_kernelILi16E"),
     "int4_matmul_tc": ("int4_matmul", "int4_matmul_tc_kernel"),
     "packed_matmul (M tile 16, INT4_EXACT)": ("packed_matmul",
-                                              "packed_matmul_kernelILi16ELi1ELb0ELb1E"),
+                                              "packed_matmul_kernelILi16ELi1ELi1ELb0ELb1E"),
     "packed_matmul_tiled (INT4_EXACT)": ("packed_matmul",
                                          "packed_matmul_tiled_kernelILi4ELi11ELi1ELi4ELb0E"),
+    "packed_matmul_prepacked (M tile 4, 4 columns a thread, fused)": (
+        "packed_matmul", "packed_matmul_kernelILi4ELi2ELi4ELb1ELb0E"),
+    "packed_matmul_prepacked_tiled (a4w4-p10-n32-mr+full-c2, fused)": (
+        "packed_matmul", "packed_matmul_prepacked_tiled_kernelILb1ELb1ELb0ELi32ELi10ELi2ELi1E"),
 }
 
 _OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)")

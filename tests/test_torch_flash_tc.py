@@ -87,10 +87,16 @@ def test_emulation_takes_bf16_only():
 
 def test_routes_name_one_kernel_per_dtype():
     assert tfa.ROUTES == {torch.bfloat16: "flash_attention_sm90",
-                          torch.float32: "flash_attention"}
-    assert set(tfa.flash_attention.route_launches) == set(tfa.ROUTES.values())
+                          torch.float16: "flash_attention_sm90_f16",
+                          torch.float32: "flash_attention_sm90_f32"}
+    # every route is a kernel of its own, counted on its own; the CUDA-core
+    # f32 kernel stays callable beside them
+    assert set(tfa.ROUTES.values()) < set(tfa.KERNELS) == set(tfa.SOURCES)
+    assert set(tfa.flash_attention.route_launches) == set(tfa.KERNELS)
     sources = {p.stem for p in tfa.build.CSRC.glob("*.cu")}
-    assert set(tfa.ROUTES.values()) <= sources
+    assert set(tfa.SOURCES.values()) <= sources
+    for name, stem in tfa.SOURCES.items():  # each C entry is in its source
+        assert f'"C" int {name}_launch(' in (tfa.build.CSRC / f"{stem}.cu").read_text()
 
 
 def test_cpu_tensors_count_no_route_launch():
