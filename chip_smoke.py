@@ -14,10 +14,14 @@ anything in it fails:
    wsc (bits_w > p) among them, both activation forms, ragged M/N/K, the
    M > 16 kernels at M 17, 33, 63 and with K split over blocks, the
    M <= 16 kernels forced at M = 64, and the main path's shapes),
-   bit-exact (max abs diff 0); then each kernel timed with CUDA events at
-   the main path's decode (M=4) and prefill (M=64) shapes, beside its plain
-   version, its bound and a library call, and at M=64 beside the M <= 16
-   kernel;
+   bit-exact (max abs diff 0), and the M <= 16 kernels at every geometry
+   (M 1, 2, 4, 8, 16; N a multiple of 16, of 8 only, of 4 only and odd;
+   K 8192, split over blocks, and 202); then each kernel timed with CUDA
+   events at the main path's decode (M=4) and prefill (M=64) shapes, beside
+   its plain version, its bound and a library call, and at M=64 beside the
+   M <= 16 kernel; at M=4 also by the replay of a CUDA graph of the same
+   launches (``graph_ms``: the device's time, where the event-timed loop
+   runs at the host's enqueue rate);
 4. the main path: qwen1.5-110b at full width (depth cut to 4 layers,
    random seeded weights on the card) served greedily by the fixed-slot
    ``Engine`` in native, int4_packed, dsp_tuned (plan
@@ -55,7 +59,8 @@ anything in it fails:
    replaced, which is held to the plain version too (at the f32 shape and
    at ragged S with hd 120), and the bf16 kernel at 8 heads with hd 64 and
    128; every route also checked at hd 16 and 120, which the kernels run
-   at their hd 64 and 128 instantiations.
+   at their hd 64 and 128 instantiations; float64 inputs (hd 16 and 128)
+   through the f32 route, held to the plain version on f32 copies.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -142,6 +147,36 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean time of ``fn()`` over ``iters`` launches captured once in a CUDA
+    graph and replayed between CUDA events (the median of three replays):
+    the device's time with no host enqueue in the loop (an event-timed loop
+    of M <= 16 calls times the host).  ``fn`` is warmed up on a side stream
+    first, as capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[1]
 
 
 def zero_counts(K) -> None:
@@ -267,6 +302,30 @@ def check_kernels(torch, K, ref, checks: list) -> None:
         if m == 64:
             checks.append(("int4_matmul", f"M={m} K={k} N={n}",
                            max_diff(torch, K.int4_kernels["int4_matmul"](x, w), want)))
+    # the M <= 16 kernels' geometries (8 columns a thread, or 4 for
+    # int4_matmul and one for packed_matmul): every M tile; N a multiple of
+    # 16, of 8 only, of 4 only, odd (and 304, also a multiple of 16); K long
+    # enough to split over blocks, and short and ragged
+    geometry_plans = [ref.INT4_EXACT, ref.INT4_NAIVE, ref.INT4_MR_OVERPACKED,
+                      ref.spec_from_name("a8w8-p11-n1-full-c4")]
+    for m in (1, 2, 4, 8, 16):
+        for n in (1024, 304, 312, 300, 129):
+            for k in (8192, 202):
+                x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                w = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+                checks.append(("int4_matmul", f"M={m} K={k} N={n}", max_diff(
+                    torch, K.int4_matmul(x, w), K.int4_matmul_plain(x, w))))
+                for spec in geometry_plans:
+                    x_u = torch.randint(0, 1 << spec.bits_a, (m, k), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                    lo = -(1 << (spec.bits_w - 1))
+                    w8 = torch.randint(lo, -lo, (k, n), generator=gen, device=dev,
+                                       dtype=torch.int32).to(torch.int8)
+                    checks.append(("packed_matmul", f"{spec.name()} M={m} K={k} N={n}",
+                                   max_diff(torch, K.packed_matmul(x_u, w8, spec),
+                                            K.packed_matmul_plain(x_u, w8, spec))))
     torch.cuda.synchronize()
 
 
@@ -305,8 +364,10 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
                                                device=dev, dtype=torch.uint8), k * n // 2)
             it = iter(range(10**9))
             ms = cuda_ms(torch, lambda: K.int4_matmul(xq, ws[next(it) % len(ws)]), 20)
-            parent_ms = None
-            if m > 16:
+            g_ms = parent_ms = None
+            if m <= 16:
+                g_ms = graph_ms(torch, lambda: K.int4_matmul(xq, ws[next(it) % len(ws)]), 20)
+            else:
                 parent_ms = cuda_ms(torch, lambda: K.int4_kernels["int4_matmul"](
                     xq, ws[next(it) % len(ws)]), 20)
             t0 = time.perf_counter()
@@ -322,8 +383,8 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             del w8, want
             b_ms, b_by = bound(m * k + k * n / 2 + 4 * m * n, 2 * m * k * n,
                                INT8_TENSOR_OPS_PER_S)
-            rows.append(dict(kernel=variant, M=m, K=k, N=n, ms=ms, parent_ms=parent_ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
+            rows.append(dict(kernel=variant, M=m, K=k, N=n, ms=ms, graph_ms=g_ms,
+                             parent_ms=parent_ms, plain_ms=plain_ms, library_ms=lib_ms,
                              library="torch._int_mm on unpacked int8"
                              + (" (M padded to 32)" if m < 32 else ""),
                              bound_ms=b_ms, bound_by=b_by))
@@ -339,8 +400,11 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             it = iter(range(10**9))
             ms = cuda_ms(torch, lambda: K.packed_matmul_prepacked(
                 xf, *pw[next(it) % len(pw)], main, x_scale=scale, x_zp=zp), 10)
-            parent_ms = None
-            if m > 16:
+            g_ms = parent_ms = None
+            if m <= 16:
+                g_ms = graph_ms(torch, lambda: K.packed_matmul_prepacked(
+                    xf, *pw[next(it) % len(pw)], main, x_scale=scale, x_zp=zp), 10)
+            else:
                 parent_ms = cuda_ms(torch, lambda: K.prepacked_kernels["packed_matmul_prepacked"](
                     xf, *pw[next(it) % len(pw)], main, scale, zp), 10)
             t0 = time.perf_counter()
@@ -358,8 +422,8 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             # lane is derived from them, wsc is not read), out
             b_ms, b_by, terms = packed_bound(4 * m * k + 4 * m + 2 * k * n + 4 * m * n,
                                              m, k, n, main, derived=True)
-            rows.append(dict(kernel=variant, plan=MAIN_PLAN, M=m, K=k,
-                             N=n, ms=ms, parent_ms=parent_ms, plain_ms=plain_ms,
+            rows.append(dict(kernel=variant, plan=MAIN_PLAN, M=m, K=k, N=n, ms=ms,
+                             graph_ms=g_ms, parent_ms=parent_ms, plain_ms=plain_ms,
                              library_ms=None,
                              library="none: the mr plan is not exact, no library "
                              "call computes its arithmetic", bound_ms=b_ms, bound_by=b_by,
@@ -370,8 +434,11 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
                                                 dtype=torch.int8), k * n)
             it = iter(range(10**9))
             ms = cuda_ms(torch, lambda: K.packed_matmul(xu, w8s[next(it) % len(w8s)], exact), 10)
-            parent_ms = None
-            if m > 16:
+            g_ms = parent_ms = None
+            if m <= 16:
+                g_ms = graph_ms(torch, lambda: K.packed_matmul(
+                    xu, w8s[next(it) % len(w8s)], exact), 10)
+            else:
                 parent_ms = cuda_ms(torch, lambda: K.packed_kernels["packed_matmul"](
                     xu, w8s[next(it) % len(w8s)], exact), 10)
             t0 = time.perf_counter()
@@ -387,7 +454,7 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             del w8s, want
             b_ms, b_by, terms = packed_bound(4 * m * k + k * n + 4 * m * n, m, k, n, exact)
             rows.append(dict(kernel=variant, plan=exact.name(), M=m, K=k, N=n,
-                             ms=ms, parent_ms=parent_ms, plain_ms=plain_ms,
+                             ms=ms, graph_ms=g_ms, parent_ms=parent_ms, plain_ms=plain_ms,
                              library_ms=lib_ms,
                              library="torch._int_mm (the plan is exact)"
                              + (" (M padded to 32)" if m < 32 else ""),
@@ -396,7 +463,10 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
             torch.cuda.empty_cache()
             for r in rows[-3:]:
                 log(f"time {r['kernel']:24s} M={m:3d} K={k:6d} N={n:6d}: "
-                    f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                    f"{r['ms']:.4f} ms "
+                    + (f"(graph replay {r['graph_ms']:.4f} ms) " if r["graph_ms"] is not None
+                       else "")
+                    + f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
                     + (f"the M <= 16 kernel {r['parent_ms']:.4f} ms, "
                        if r["parent_ms"] is not None else "")
                     + f"plain {r['plain_ms']:.2f} ms, library "
@@ -696,6 +766,20 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
             name = str(dt).removeprefix("torch.")
             check(K.flash_attention(*x, bq=bq, bk=bk), x, name,
                   f"B={b} H={hh} S={ss} hd={d} {name}")
+    # float64: the f32 route on copies rounded to f32, returned as float64,
+    # held to the plain version on those copies and counted under the route
+    f32_route = F.ROUTES[torch.float32]
+    for d in (16, 128):
+        x = [torch.randn((1, 2, 512, d), generator=gen, device=dev, dtype=torch.float64)
+             for _ in range(3)]
+        before = F.flash_attention.route_launches[f32_route]
+        got = K.flash_attention(*x)
+        err, ok = attn_err(torch, got, F.plain_flash_attention(*(t.float() for t in x)),
+                           "float32")
+        ok = ok and got.dtype == torch.float64 and \
+            F.flash_attention.route_launches[f32_route] == before + 1
+        attn_checks.append((ROUTE_NAMES["float32"],
+                            f"B=1 H=2 S=512 hd={d} float64 vs plain", err, ok))
     # the CUDA-core f32 kernel, on no route but timed below: held to the
     # plain version at the f32 path's shape and at ragged S with hd 120
     x = [torch.randn((1, 2, 4160, 120), generator=gen, device=dev) for _ in range(3)]
@@ -942,6 +1026,8 @@ def main(argv: list[str] | None = None) -> int:
         })
         if r["parent_ms"] is not None:
             kernels[-1]["m16_kernel_ms"] = r["parent_ms"]
+        if r["graph_ms"] is not None:
+            kernels[-1]["graph_ms"] = r["graph_ms"]
     def attn_max(name: str, against: str) -> float:
         return max(c[2] for c in attn_checks if c[0] == name and c[1].endswith(against))
 

@@ -1,6 +1,6 @@
 """Where a narrow decode GEMV's time goes, and native serving alone.
 
-    python3 host_overhead.py [--src DIR] [--json PATH]
+    python3 host_overhead.py [--src DIR] [--json PATH] [--no-serve]
 
 Imports the PyTorch/CUDA port from ``DIR`` (default: this checkout's
 ``src``), so that two trees, each unpacked with its own ``src``, can be run
@@ -14,16 +14,20 @@ in turns on one card.  Needs a CUDA card and nvcc; imports nothing of JAX.
    step left out as ``chip_smoke.py`` does) and prefill tok/s.
 2. The three packed decode wrappers at M = 4 (``int4_matmul``,
    ``packed_matmul`` with INT4_EXACT, ``packed_matmul_prepacked`` with the
-   mr plan), at K x N = 8192 x 1024 and 8192 x 8192, called as
-   ``chip_smoke.py`` times them, on weight copies that overflow the L2:
+   mr plan), at the five main-path linear shapes of ``chip_smoke.py``
+   (K x N = 8192 x 8192, 8192 x 1024, 8192 x 49152, 49152 x 8192,
+   8192 x 152064), called as ``chip_smoke.py`` times them, on weight
+   copies that overflow the L2:
    ``event_ms`` (CUDA events around 20 back-to-back calls, per call; what
    ``chip_smoke.py`` reports), ``host_us`` (host clock around the same
    calls before the sync: the enqueue time per call) and ``graph_ms`` (the
    same 20 calls captured in a CUDA graph and replayed, per call: the
    device's time with no host in the loop).  Where ``host_us`` is near
-   ``event_ms`` and ``graph_ms`` is far below it, the loop times the host.
+   ``event_ms`` and ``graph_ms`` is far below it, the loop times the host
+   (the narrow shapes, 8192 x 1024 and 8192 x 8192).
 
-Prints one JSON object as its last line (``--json`` also writes it).
+``--no-serve`` leaves out step 1.  Prints one JSON object as its last
+line (``--json`` also writes it).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from pathlib import Path
 
 L2_BYTES = 50 * 2**20
 MAIN_PLAN = "a4w4-p10-n32-mr+full-c2"
-SHAPES = ((8192, 1024), (8192, 8192))
+SHAPES = ((8192, 8192), (8192, 1024), (8192, 49152), (49152, 8192), (8192, 152064))
 ITERS, REPS = 20, 7
 
 
@@ -156,6 +160,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=Path(__file__).resolve().parent / "src")
     ap.add_argument("--json", type=Path, default=None, metavar="PATH")
+    ap.add_argument("--no-serve", action="store_true", help="time the wrappers only")
     args = ap.parse_args(argv)
     import torch
 
@@ -177,7 +182,8 @@ def main(argv: list[str] | None = None) -> int:
     build.build_all()
     cfg = dataclasses.replace(get_config("qwen1.5-110b"), n_layers=4)
     result = dict(card=card, src=str(args.src),
-                  native=serve_native(torch, cfg, Engine, ServeConfig, T),
+                  native=[] if args.no_serve
+                  else serve_native(torch, cfg, Engine, ServeConfig, T),
                   wrappers=time_wrappers(torch, i4, pm, ref))
     for r in result["native"]:
         print(f"[host_overhead] native: decode {r['decode_ms_per_step']:.2f} ms/step, "

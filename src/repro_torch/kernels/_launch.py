@@ -33,10 +33,10 @@ def sm_count(index: int) -> int:
 
 
 def split_k(blocks: int, units: int, device: torch.device,
-            min_units: int = 1) -> int:
-    """Units of K per split so that about eight blocks per SM are in flight
-    (enough loads outstanding to cover HBM latency in a decode GEMV);
-    never fewer than ``min_units`` per split."""
-    want = -(-8 * sm_count(device.index or 0) // max(blocks, 1))
-    per = -(-units // max(want, 1))
-    return max(per, min(min_units, units), 1)
+            min_units: int = 1, per_sm: int = 8, max_units: int | None = None) -> int:
+    """Units of K per split so that about ``per_sm`` blocks per SM are in
+    flight (enough loads outstanding to cover HBM latency in a decode GEMV);
+    never fewer than ``min_units`` per split, nor more than ``max_units``."""
+    want = -(-per_sm * sm_count(device.index or 0) // max(blocks, 1))
+    per = max(-(-units // max(want, 1)), min(min_units, units), 1)
+    return per if max_units is None else min(per, max_units)

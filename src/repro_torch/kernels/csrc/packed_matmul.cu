@@ -49,6 +49,25 @@
 // integer atomicAdd, exact and order-independent mod 2**32.  Not yet done:
 // TMA, a load pipeline.
 //
+// The per-call entry at M <= 16 (packed_matmul_wide_kernel, where N % 8 ==
+// 0 and the accumulators fit; the one-column kernel elsewhere).  What bounds
+// it: 1 byte of int8 weight per weight and, for INT4_EXACT, 2*M 32-bit
+// multiply-adds per weight pair and an extraction per chunk: the bytes
+// (0.12 ms at M = 4, 8192 x 49152) lead, the integer work close behind.
+// The one-column form read each weight with a 1-byte load, so a warp's
+// request covered 32 bytes of a 128-byte line, and kept about 8 bytes in
+// flight a thread: latency bounded it, at a fifth of the byte rate.  What
+// the design does: each thread owns 8 consecutive columns and reads each
+// weight row's 8 int8 values in one 8-byte load (a warp reads 256
+// contiguous bytes of the row), builds the 8 pair words (and even weights)
+// in registers, and issues the next 64 bytes of rows before this step's
+// products.  The block's threads form two slices over K, so a block covers
+// 512 columns and the grid splits K no more than before; the slices' sums
+// meet in shared memory, and all threads store (or atomically add)
+// consecutive columns, coalesced.  Tried on the card and not kept: 16
+// columns a thread (16-byte loads; their registers leave two blocks a SM)
+// and 128 bytes a step, both slower.
+//
 // At M > 16 both entries run a tiled kernel instead: packed_matmul_tiled_kernel
 // (per-call entry) and packed_matmul_prepacked_tiled_kernel (prepacked).
 // What held the one-column kernel back there: a block held at most 16 rows,
@@ -84,7 +103,7 @@ struct PackedParams {
   int rounds_half_up, uses_mr, zp;
   int tile_chunks, chunks_per_split;
   int reads_wsc;        // prepacked mr plans: 1 = read wsc's even lane, 0 = derive it
-  int cols_per_thread;  // one-column kernel: output columns a thread (1, or 4 at BM = 4)
+  int cols_per_thread;  // M <= 16: output columns a thread (prepacked 1 or 4, raw 1 or 8)
 };
 
 namespace {
@@ -135,20 +154,55 @@ __device__ __forceinline__ uint32_t load_x(const void* x, const float* scale, in
   return k < P.K ? (uint32_t)static_cast<const int32_t*>(x)[(size_t)row * P.K + k] : 0u;
 }
 
+// Stage the activation pair words of the block's M tile for one K tile
+// (tpt pairs from chunk ct on): each (row, pair) loads (or quantizes) its
+// two activations once and writes the pair word of every column slice, and
+// the odd activation's low mr bits, in the layout [column j][pair q][row m],
+// rows fastest (one uint4 = four rows), tile_chunks * n_pairs pairs a column.
+template <int BM, bool FUSED>
+__device__ __forceinline__ void stage_pairs(const void* x, const float* x_scale,
+                                            uint32_t* aw, uint32_t* xo, int m0, int ct,
+                                            int tpt, const Params& P) {
+  const int chunk = 2 * P.n_pairs;
+  const int tp = P.tile_chunks * P.n_pairs;
+  const uint32_t cmask = P.n_columns == 1 ? 0xFFFFFFFFu : (1u << P.col_bits_a) - 1u;
+  const uint32_t mrmask = (1u << P.mr_bits) - 1u;
+  for (int idx = threadIdx.x; idx < tpt * BM; idx += kThreads) {
+    const int m = idx % BM;
+    const int q = idx / BM;
+    const int row = m0 + m;
+    const int k = ct * chunk + 2 * q;
+    uint32_t v0 = 0u, v1 = 0u;
+    if (row < P.M) {
+      v0 = load_x<FUSED>(x, x_scale, row, k, P);
+      v1 = load_x<FUSED>(x, x_scale, row, k + 1, P);
+    }
+    for (int j = 0; j < P.n_columns; ++j) {
+      const uint32_t s0 = (v0 >> (j * P.col_bits_a)) & cmask;
+      const uint32_t s1 = (v1 >> (j * P.col_bits_a)) & cmask;
+      const size_t at = ((size_t)j * tp + q) * BM + m;
+      aw[at] = s0 + (s1 << P.p);
+      xo[at] = s1 & mrmask;
+    }
+  }
+}
+
 // RAW = weights are (kw, N) int8 signed ints packed on the fly; otherwise
 // prepacked words (+ wsc for mr plans whose even lane is not derived).  NCP
 // = activation columns served per pass over the weights (a divisor of
 // n_columns): each weight word is loaded once per pass and multiplied into
 // NCP column streams.  CPT = output columns per thread (prepacked only, N
 // % CPT == 0): one 16-byte load brings four columns' words, so that a
-// thread keeps four times the bytes in flight per load.
+// thread keeps four times the bytes in flight per load.  The per-call
+// entry's several columns a thread are packed_matmul_wide_kernel's.
 template <int BM, int NCP, int CPT, bool FUSED, bool RAW>
 __global__ void __launch_bounds__(kThreads)
 packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_scale,
                      const int32_t* __restrict__ words, const int32_t* __restrict__ wsc,
                      const int8_t* __restrict__ w_raw, int32_t* __restrict__ out,
                      Params P) {
-  static_assert(CPT == 1 || (CPT == 4 && !RAW), "four columns a thread: prepacked words");
+  static_assert(CPT == 1 || (CPT == 4 && !RAW),
+                "four columns a thread: prepacked words (raw: packed_matmul_wide_kernel)");
   extern __shared__ __align__(16) uint32_t smem[];
   const int m0 = blockIdx.x * BM;
   const int n = (blockIdx.y * kThreads + threadIdx.x) * CPT;  // the thread's first column
@@ -159,7 +213,6 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
   // layout [column j][pair q][row m], rows fastest: one uint4 = four rows
   uint32_t* aw = smem;
   uint32_t* xo = smem + (size_t)P.n_columns * tp * BM;
-  const uint32_t cmask = P.n_columns == 1 ? 0xFFFFFFFFu : (1u << P.col_bits_a) - 1u;
   const uint32_t mrmask = (1u << P.mr_bits) - 1u;
 
   uint32_t acc[BM][CPT];
@@ -172,26 +225,7 @@ packed_matmul_kernel(const void* __restrict__ x, const float* __restrict__ x_sca
     const int nct = min(P.tile_chunks, c_end - ct);
     const int tpt = nct * P.n_pairs;
     __syncthreads();  // the previous tile's words are consumed
-    // stage: each (row, pair) quantizes its two activations once and
-    // writes the pair word of every column slice
-    for (int idx = threadIdx.x; idx < tpt * BM; idx += kThreads) {
-      const int m = idx % BM;
-      const int q = idx / BM;
-      const int row = m0 + m;
-      const int k = ct * chunk + 2 * q;
-      uint32_t v0 = 0u, v1 = 0u;
-      if (row < P.M) {
-        v0 = load_x<FUSED>(x, x_scale, row, k, P);
-        v1 = load_x<FUSED>(x, x_scale, row, k + 1, P);
-      }
-      for (int j = 0; j < P.n_columns; ++j) {
-        const uint32_t s0 = (v0 >> (j * P.col_bits_a)) & cmask;
-        const uint32_t s1 = (v1 >> (j * P.col_bits_a)) & cmask;
-        const size_t at = ((size_t)j * tp + q) * BM + m;
-        aw[at] = s0 + (s1 << P.p);
-        xo[at] = s1 & mrmask;
-      }
-    }
+    stage_pairs<BM, FUSED>(x, x_scale, aw, xo, m0, ct, tpt, P);
     __syncthreads();
     if (n < P.N) {
       for (int j0 = 0; j0 < P.n_columns; j0 += NCP) {
@@ -315,6 +349,217 @@ int launch(const void* x, const float* x_scale, const int32_t* words, const int3
   dim3 grid((P.M + BM - 1) / BM, (P.N + cols - 1) / cols, splits);
   kernel<<<grid, kThreads, smem, stream>>>(x, x_scale, words, wsc, w_raw, out, P);
   return (int)cudaGetLastError();
+}
+
+// ---- per-call entry at M <= 16, eight columns a thread ----------------------------
+
+constexpr int kWideCols = 8;    // output columns a thread of the wide kernel
+constexpr int kWideSlices = 2;  // its block's slices over K: a block covers 512 columns
+constexpr int kStepBytes = 64;  // weight bytes a thread of the wide kernel loads a step
+
+// kWideCols bytes of one weight row: one 8-byte load (zero past kw).
+__device__ __forceinline__ uint2 load_row(const int8_t* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0, 0);
+}
+
+// The per-call entry's M <= 16 kernel where N % 8 == 0 and the
+// accumulators fit (NC x BM x 8, twice for an mr plan, at most 64): each
+// thread owns CPT = kWideCols = 8 consecutive output columns and reads each
+// weight row's 8 int8 values with one 8-byte load, so a warp reads 256
+// contiguous bytes of the row.  The pair words w1 + (w0 << p) and the even
+// weights (mr plans) are built in registers from the loaded bytes, in the
+// one-column kernel's uint32 arithmetic; the activations are staged and the
+// fields extracted as that kernel does, all NC = n_columns column streams
+// in one pass.  The pairs run U a step (kStepBytes of weights), the next
+// step's loads issued before this step's products, so 64 bytes stay in
+// flight a thread.  The block's threads form kWideSlices slices of
+// kThreads / kWideSlices column threads: each slice runs its share of every
+// staged K tile's chunks, and the slices' sums meet in shared memory at the
+// end, so that wider threads need no more blocks split over K (and no more
+// atomics) than one column a thread did.
+template <int BM, int NC, bool MR>
+__global__ void __launch_bounds__(kThreads)
+packed_matmul_wide_kernel(const int32_t* __restrict__ x, const int8_t* __restrict__ w,
+                          int32_t* __restrict__ out, Params P) {
+  constexpr int CPT = kWideCols;
+  static_assert(NC * BM * CPT * (MR ? 2 : 1) <= 64, "tile");
+  constexpr int U = kStepBytes / (2 * CPT);  // pairs a step: 2 rows x CPT bytes x U
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int lanes = kThreads / kWideSlices;  // column threads a slice
+  const int slice = threadIdx.x / lanes, lane = threadIdx.x % lanes;
+  const int m0 = blockIdx.x * BM;
+  const int n = (blockIdx.y * lanes + lane) * CPT;  // the thread's first column
+  const int c_begin = blockIdx.z * P.chunks_per_split;
+  const int c_end = min(c_begin + P.chunks_per_split, P.n_chunks);
+  const int chunk = 2 * P.n_pairs;
+  const int tp = P.tile_chunks * P.n_pairs;
+  const uint32_t* aw = smem;
+  const uint32_t* xo = smem + (size_t)NC * tp * BM;
+  const uint32_t mrmask = (1u << P.mr_bits) - 1u;
+
+  uint32_t acc[BM][CPT];
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) acc[m][u] = 0u;
+
+  for (int ct = c_begin; ct < c_end; ct += P.tile_chunks) {
+    const int nct = min(P.tile_chunks, c_end - ct);
+    __syncthreads();  // the previous tile's words are consumed
+    stage_pairs<BM, false>(x, nullptr, smem, smem + (size_t)NC * tp * BM, m0, ct,
+                           nct * P.n_pairs, P);
+    __syncthreads();
+    if (n >= P.N) continue;
+    // this slice's chunks of the tile, as pairs [q_begin, q_end)
+    const int share = (nct + kWideSlices - 1) / kWideSlices;
+    const int q_begin = min(nct, slice * share) * P.n_pairs;
+    const int q_end = min(nct, (slice + 1) * share) * P.n_pairs;
+    const int8_t* wt = w + (size_t)ct * chunk * P.N + n;
+    const int rows = P.kw - ct * chunk;  // weight rows from this tile's first on
+    uint2 cur[U][2], nxt[U][2];  // rows 2q and 2q + 1 of pair q's columns
+    auto load = [&](uint2 (&b)[U][2], int q0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = 2 * (q0 + u);
+        const bool in = q0 + u < q_end;
+        b[u][0] = load_row(wt + (size_t)r * P.N, in && r < rows);
+        b[u][1] = load_row(wt + (size_t)(r + 1) * P.N, in && r + 1 < rows);
+      }
+    };
+    uint32_t part[NC][BM][CPT], cont[MR ? NC : 1][BM][CPT];
+#pragma unroll
+    for (int jj = 0; jj < NC; ++jj)
+#pragma unroll
+      for (int m = 0; m < BM; ++m)
+#pragma unroll
+        for (int u = 0; u < CPT; ++u) part[jj][m][u] = cont[MR ? jj : 0][m][u] = 0u;
+    load(cur, q_begin);
+    int pp = 0;  // the pair's place in its chunk (a slice starts on a chunk)
+    for (int q0 = q_begin; q0 < q_end; q0 += U) {
+      load(nxt, q0 + U);  // in flight during this step's products
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = q0 + u;
+        if (q >= q_end) break;
+        uint32_t wword[CPT], weven[CPT];
+#pragma unroll
+        for (int b = 0; b < CPT; ++b) {
+          const int32_t w0 = (int8_t)((b < 4 ? cur[u][0].x : cur[u][0].y) >> (8 * (b % 4)));
+          const int32_t w1 = (int8_t)((b < 4 ? cur[u][1].x : cur[u][1].y) >> (8 * (b % 4)));
+          wword[b] = (uint32_t)w1 + ((uint32_t)w0 << P.p);
+          weven[b] = (uint32_t)w0 & mrmask;
+        }
+#pragma unroll
+        for (int jj = 0; jj < NC; ++jj) {
+          const size_t base = ((size_t)jj * tp + q) * BM;
+          const uint4* a4 = reinterpret_cast<const uint4*>(aw + base);
+#pragma unroll
+          for (int m4 = 0; m4 < BM / 4; ++m4) {
+            const uint4 a = a4[m4];
+#pragma unroll
+            for (int b = 0; b < CPT; ++b) {
+              part[jj][4 * m4 + 0][b] += a.x * wword[b];
+              part[jj][4 * m4 + 1][b] += a.y * wword[b];
+              part[jj][4 * m4 + 2][b] += a.z * wword[b];
+              part[jj][4 * m4 + 3][b] += a.w * wword[b];
+            }
+          }
+          if constexpr (MR) {
+            const uint4* o4 = reinterpret_cast<const uint4*>(xo + base);
+#pragma unroll
+            for (int m4 = 0; m4 < BM / 4; ++m4) {
+              const uint4 a = o4[m4];
+#pragma unroll
+              for (int b = 0; b < CPT; ++b) {
+                cont[jj][4 * m4 + 0][b] += a.x * weven[b];
+                cont[jj][4 * m4 + 1][b] += a.y * weven[b];
+                cont[jj][4 * m4 + 2][b] += a.z * weven[b];
+                cont[jj][4 * m4 + 3][b] += a.w * weven[b];
+              }
+            }
+          }
+        }
+        if (++pp == P.n_pairs) {  // the chunk is complete: extract its fields
+          pp = 0;
+#pragma unroll
+          for (int jj = 0; jj < NC; ++jj) {
+            const uint32_t shift = (uint32_t)(jj * P.col_bits_a);
+#pragma unroll
+            for (int m = 0; m < BM; ++m)
+#pragma unroll
+              for (int b = 0; b < CPT; ++b) {
+                acc[m][b] += (uint32_t)extract(part[jj][m][b],
+                                               MR ? cont[MR ? jj : 0][m][b] & mrmask : 0u, P)
+                             << shift;
+                part[jj][m][b] = cont[MR ? jj : 0][m][b] = 0u;
+              }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) cur[u][0] = nxt[u][0], cur[u][1] = nxt[u][1];
+    }
+  }
+
+  // every slice leaves its sums in shared memory, [slice][row][column], the
+  // block's columns consecutive; then all threads add the slices up for
+  // consecutive columns, so that the stores (or atomics) coalesce
+  constexpr int cols = lanes * CPT;  // the block's columns
+  __syncthreads();  // the staged words are consumed
+  if (n < P.N) {
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+#pragma unroll
+      for (int b = 0; b < CPT; b += 4)
+        *reinterpret_cast<uint4*>(smem + (slice * BM + m) * cols + lane * CPT + b) =
+            make_uint4(acc[m][b], acc[m][b + 1], acc[m][b + 2], acc[m][b + 3]);
+  }
+  __syncthreads();
+  const int col0 = blockIdx.y * cols;
+  const int rows_out = min(BM, P.M - m0);
+  const bool split = gridDim.z > 1;
+  for (int i = threadIdx.x; i < rows_out * cols; i += kThreads) {
+    const int m = i / cols, j = i % cols;
+    if (col0 + j >= P.N) continue;
+    uint32_t v = 0u;
+#pragma unroll
+    for (int s = 0; s < kWideSlices; ++s) v += smem[(s * BM + m) * cols + j];
+    int32_t* o = out + (size_t)(m0 + m) * P.N + col0 + j;
+    if (split) atomicAdd(o, (int32_t)v);
+    else *o = (int32_t)v;
+  }
+}
+
+template <int BM, int NC, bool MR>
+int launch_wide(const int32_t* x, const int8_t* w, int32_t* out, const Params& P, int splits,
+                cudaStream_t stream) {
+  constexpr int CPT = kWideCols;
+  auto kernel = packed_matmul_wide_kernel<BM, NC, MR>;
+  const size_t stage = 2u * (size_t)NC * P.tile_chunks * P.n_pairs * BM * sizeof(uint32_t);
+  const size_t sums = (size_t)kThreads * BM * CPT * sizeof(uint32_t);
+  const size_t smem = stage > sums ? stage : sums;
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  constexpr int cols = kThreads / kWideSlices * CPT;  // output columns a block
+  dim3 grid((P.M + BM - 1) / BM, (P.N + cols - 1) / cols, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(x, w, out, P);
+  return (int)cudaGetLastError();
+}
+
+// The wide forms the wrapper picks (packed_matmul.raw_cols_per_thread).
+int dispatch_wide(int bm, const int32_t* x, const int8_t* w, int32_t* out, const Params& P,
+                  int splits, cudaStream_t stream) {
+  const int nc = P.n_columns;
+  if (P.cols_per_thread != kWideCols || P.N % kWideCols) return (int)cudaErrorInvalidValue;
+  if (bm == 4 && nc == 1)
+    return P.uses_mr ? launch_wide<4, 1, true>(x, w, out, P, splits, stream)
+                     : launch_wide<4, 1, false>(x, w, out, P, splits, stream);
+  if (bm == 4 && nc == 2 && !P.uses_mr) return launch_wide<4, 2, false>(x, w, out, P, splits, stream);
+  if (bm == 8 && nc == 1 && !P.uses_mr) return launch_wide<8, 1, false>(x, w, out, P, splits, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Columns per pass: the largest of 4, 2, 1 dividing n_columns whose
@@ -865,10 +1110,15 @@ extern "C" int packed_matmul_prepacked_tiled_launch(const void* x, const void* x
 }
 
 // Per-call entry: x int32 unsigned activations (M, K), w (K, N) int8 signed
-// integers packed into words as they are read.
+// integers packed into words as they are read; P.cols_per_thread > 1 takes
+// the wide kernel (dispatch_wide), 1 the one-column kernel.
 extern "C" int packed_matmul_launch(const void* x, const void* w, void* out,
                                     const PackedParams* P, int bm, int splits,
                                     void* stream) {
+  if (P->cols_per_thread > 1)
+    return dispatch_wide(bm, static_cast<const int32_t*>(x), static_cast<const int8_t*>(w),
+                         static_cast<int32_t*>(out), *P, splits,
+                         static_cast<cudaStream_t>(stream));
   return dispatch_bm<false, true>(bm, x, nullptr, nullptr, nullptr,
                                   static_cast<const int8_t*>(w), static_cast<int32_t*>(out),
                                   *P, splits, static_cast<cudaStream_t>(stream));

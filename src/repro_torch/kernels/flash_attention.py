@@ -2,8 +2,9 @@
 
 Counterpart of the reference's ``repro.kernels.flash_attention``: q, k, v
 (B, H, S, hd) with the same H for all three (no grouped heads inside the
-kernel) -> (B, H, S, hd) in q's dtype, for float32, bfloat16 and float16
-inputs (float64 is not a serving dtype and raises).  The reference
+kernel) -> (B, H, S, hd) in q's dtype, for float32, bfloat16, float16 and
+float64 inputs; float64 runs the f32 route on copies rounded to f32, as
+the reference's upcast computes it, and returns float64.  The reference
 kernel's arithmetic, which the plain version repeats: q, k and v are
 upcast to f32, q is multiplied by ``hd**-0.5`` before the product, keys
 past the query are masked with ``-1e30`` (not ``-inf``), the softmax runs
@@ -86,12 +87,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int, bk: int) 
     s = q.shape[2]
     if bq <= 0 or bk <= 0 or s % bq or s % bk or bq % bk:
         raise ValueError(f"need S % bq == S % bk == bq % bk == 0, got S={s} bq={bq} bk={bk}")
-    if q.dtype == torch.float64:
-        raise TypeError("flash_attention does not take float64 (not a serving dtype); "
-                        "use float32, bfloat16 or float16")
-    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
+    taken = q.dtype in ROUTES or q.dtype == torch.float64
+    if not taken or not q.dtype == k.dtype == v.dtype:
         raise TypeError(
-            f"q, k, v must share one dtype of float32, bfloat16 or float16, got "
+            f"q, k, v must share one dtype of float32, bfloat16, float16 or float64, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
 
@@ -261,8 +260,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = 256, bk: int = 256) -> torch.Tensor:
     """Causal attention.  q, k, v: (B, H, S, hd) -> (B, H, S, hd), hd a
     multiple of 8 up to 128 on the card.  Counts every launch in
-    ``launches`` and in ``route_launches[ROUTES[dtype]]``."""
+    ``launches`` and in ``route_launches[ROUTES[dtype]]``; float64 counts
+    under the f32 route, which it runs on copies rounded to f32."""
     _check(q, k, v, bq, bk)
+    if q.dtype == torch.float64:
+        return flash_attention(q.float(), k.float(), v.float(), bq, bk).double()
     if not q.is_cuda:
         return plain_flash_attention(q, k, v)
     return _launch(ROUTES[q.dtype], q, k, v)

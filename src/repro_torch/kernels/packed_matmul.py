@@ -15,11 +15,13 @@ Counterparts of the reference's ``repro.kernels.packed_matmul``:
   other mr plans.
 * :func:`packed_matmul` — (M, K) unsigned ints x (K, N) signed ints, the
   weights packed into words as the kernel reads them.  Two kernels share
-  this entry, chosen by M (:data:`VARIANTS`): ``packed_matmul`` (one
-  output column per thread, at most 16 rows per block) for M <= 16, the
-  decode GEMV, and ``packed_matmul_tiled`` (64 x 128 block tiles, 8 x 4
-  register tiles per thread) above, the prefill chunks; :data:`KERNELS`
-  maps each to its launcher, so that the two can be timed at one shape.
+  this entry, chosen by M (:data:`VARIANTS`): ``packed_matmul`` (at most
+  16 rows per block; 8 output columns a thread read with 8-byte loads of
+  each weight row where :func:`raw_cols_per_thread` allows, one column
+  elsewhere) for M <= 16, the decode GEMV, and ``packed_matmul_tiled``
+  (64 x 128 block tiles, 8 x 4 register tiles per thread) above, the
+  prefill chunks; :data:`KERNELS` maps each to its launcher, so that the
+  two can be timed at one shape.
 
 Both serve any legal :class:`ref.PackedDotSpec`.  A CUDA tensor launches
 the kernel (or raises); a CPU tensor runs the plain version beside each
@@ -48,14 +50,19 @@ __all__ = [
     "prepacked_variant_for",
     "derives_even_lane",
     "even_lane",
+    "raw_cols_per_thread",
     "packed_matmul",
     "packed_matmul_plain",
     "packed_matmul_prepacked",
     "packed_matmul_prepacked_plain",
 ]
 
-_THREADS = 128           # output columns per block (csrc kThreads)
+_THREADS = 128           # threads per block (csrc kThreads)
 _SMEM_BUDGET = 24 * 1024  # staged activation words per K tile (~8 blocks/SM)
+_WIDE_ACC = 64            # accumulators per array a thread of the wide kernel
+_WIDE_COLS = 512          # its block's columns (csrc kThreads / kWideSlices * kWideCols)
+_WIDE_BLOCKS_PER_SM = 8   # split-K target of the wide kernel ...
+_WIDE_MIN_K = 64          # ... with at least this many k a split
 
 VARIANTS = ("packed_matmul", "packed_matmul_tiled")
 PREPACKED_VARIANTS = ("packed_matmul_prepacked", "packed_matmul_prepacked_tiled")
@@ -74,17 +81,31 @@ class _Params(ctypes.Structure):
     )]
 
 
+def raw_cols_per_thread(bm: int, n: int, spec: PackedDotSpec) -> int:
+    """Output columns a thread of the per-call entry's M <= 16 kernel: 8
+    (an 8-byte load of each weight row) where N % 8 == 0 and the
+    accumulators fit (n_columns x bm x 8, twice for an mr plan, at most
+    ``_WIDE_ACC``); else 1, the one-column form."""
+    acc = spec.n_columns * bm * (2 if spec.uses_mr else 1)
+    return 8 if n % 8 == 0 and acc * 8 <= _WIDE_ACC else 1
+
+
 def _geometry(m: int, n: int, n_chunks: int, spec: PackedDotSpec,
               device: torch.device, prepacked: bool = False) -> tuple[int, int, int, int, int]:
     """(bm, tile_chunks, chunks_per_split, splits, cols_per_thread) for one
-    launch of the one-column kernel: four output columns a thread for
-    prepacked words at M <= 4 (16-byte word loads) where N % 4 == 0."""
+    launch of an M <= 16 kernel: four output columns a thread for prepacked
+    words at M <= 4 (16-byte word loads) where N % 4 == 0; the per-call
+    entry's :func:`raw_cols_per_thread`, whose wide kernel's block covers
+    ``_WIDE_COLS`` columns."""
     bm = 4 if m <= 4 else 8 if m <= 8 else 16
-    cpt = 4 if prepacked and bm == 4 and n % 4 == 0 else 1
+    cpt = (4 if bm == 4 and n % 4 == 0 else 1) if prepacked else raw_cols_per_thread(bm, n, spec)
+    wide = not prepacked and cpt > 1
     per_chunk = 2 * spec.n_columns * spec.n_pairs * bm * 4  # bytes staged
     tile = max(1, min(n_chunks, _SMEM_BUDGET // per_chunk))
-    blocks = -(-m // bm) * -(-n // (_THREADS * cpt))
-    per = split_k(blocks, n_chunks, device)
+    blocks = -(-m // bm) * -(-n // (_WIDE_COLS if wide else _THREADS * cpt))
+    per = split_k(blocks, n_chunks, device,
+                  min_units=-(-_WIDE_MIN_K // spec.chunk) if wide else 1,
+                  per_sm=_WIDE_BLOCKS_PER_SM if wide else 8)
     return bm, tile, per, -(-n_chunks // per), cpt
 
 
@@ -385,14 +406,15 @@ def _int_operands(x_u: torch.Tensor, w_s: torch.Tensor) -> tuple[torch.Tensor, t
 
 def _packed_matmul_columns(x_u: torch.Tensor, w_s: torch.Tensor,
                            spec: PackedDotSpec) -> torch.Tensor:
-    """The one-column-per-thread kernel, any M."""
+    """The M <= 16 kernel, any M: several columns a thread with wide weight
+    loads where :func:`raw_cols_per_thread` allows, one column elsewhere."""
     x_u, w_s = _int_operands(x_u, w_s)
     dev = x_u.device
     m, k = x_u.shape
     n = w_s.shape[1]
     n_chunks = -(-k // spec.chunk)
-    bm, tile, per, splits, _ = _geometry(m, n, n_chunks, spec, dev)
-    prm = _params(spec, m, k, n, k, n_chunks, 0, tile, per)
+    bm, tile, per, splits, cpt = _geometry(m, n, n_chunks, spec, dev)
+    prm = _params(spec, m, k, n, k, n_chunks, 0, tile, per, cpt)
     out = _out(m, n, splits, dev)
     fn = build.library("packed_matmul").packed_matmul_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Params), ctypes.c_int,

@@ -185,6 +185,6 @@ def test_flash_contract_errors(shapes, bq, bk, err):
 def test_flash_dtype_errors():
     q = torch.zeros((1, 1, 64, 64))
     with pytest.raises(TypeError):
-        tfa.flash_attention(q.double(), q.double(), q.double(), bq=64, bk=64)
+        tfa.flash_attention(q.int(), q.int(), q.int(), bq=64, bk=64)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, q.bfloat16(), q, bq=64, bk=64)

@@ -133,12 +133,6 @@ def test_tc_design_matches_routes():
     assert tfa.TC_DESIGN[torch.float16] == tfa.TC_DESIGN[torch.bfloat16] == (64, 1, 2)
 
 
-def test_float64_raises_by_name():
-    q = torch.zeros((1, 1, 64, 64), dtype=torch.float64)
-    with pytest.raises(TypeError, match="float64"):
-        tfa.flash_attention(q, q, q, bq=64, bk=64)
-
-
 # ---- packed_matmul_prepacked: the even lane and the kernel choice ----------
 
 
