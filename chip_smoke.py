@@ -24,13 +24,19 @@ anything in it fails:
    runs at the host's enqueue rate);
 4. the main path: qwen1.5-110b at full width (depth cut to 4 layers,
    random seeded weights on the card) served greedily by the fixed-slot
-   ``Engine`` in native, int4_packed, dsp_tuned (plan
-   a4w4-p10-n32-mr+full-c2) and dsp_packed, then each packed mode again
-   with ``fuse_projections="all"``, whose greedy tokens must equal the
-   unfused run's; the kernels' launch counters are zeroed just before and
-   read just after, and every kernel must have launched (the M <= 16
-   kernels in decode, the M > 16 ones, ``packed_matmul_prepacked_tiled``
-   among them, in 64-row prefill chunks); logits must be finite;
+   ``Engine`` in native, int8, int4_packed, dsp_tuned and dsp_packed, then
+   each quantized mode again with ``fuse_projections="all"``, whose greedy
+   tokens must equal the unfused run's; dsp_tuned's plans come from the
+   tuner (plan_bits (4, 4), budget 0.5, the cost proxy), which must pick
+   a4w4-p10-n32-mr+full-c2 on every packable weight, and a second
+   dsp_tuned engine given that plan by hand must emit the same tokens;
+   dsp_tuned is built once more with ``autotune_plans`` (the tuner times
+   the kernel variants at each layer shape on the card) and its greedy
+   tokens must equal a plain-version engine's on the same plans; the
+   kernels' launch counters are zeroed just before and read just after,
+   and every kernel must have launched (the M <= 16 kernels in decode, the
+   M > 16 ones, ``packed_matmul_prepacked_tiled`` among them, in 64-row
+   prefill chunks); logits must be finite;
 5. whole-path agreement at the smoke config: the kernel engine and the
    plain-version engine emit identical greedy tokens in int4_packed,
    dsp_tuned (mr plan) and dsp_packed, with prefill chunks of 8 rows and
@@ -60,7 +66,20 @@ anything in it fails:
    at ragged S with hd 120), and the bf16 kernel at 8 heads with hd 64 and
    128; every route also checked at hd 16 and 120, which the kernels run
    at their hd 64 and 128 instantiations; float64 inputs (hd 16 and 128)
-   through the f32 route, held to the plain version on f32 copies.
+   through the f32 route, held to the plain version on f32 copies;
+9. the plan search on the card: ``rank_plans(4, 4)`` at budget 0.5 by the
+   cost proxy from a cold score cache, then with ``autotune=True`` at
+   (64, 8192, 8192) and decode (4, 8192, 8192), which times each plan's
+   kernel variants of ``packed_matmul_prepacked`` (every candidate held
+   bit-exact to the first); every in-budget plan's variants timed at both
+   shapes, and the winners that differ from the wrapper's own choice by M
+   counted; the top plan's winning variants held against the plain version
+   at those shapes; then dsp_tuned engines at the smoke config on one
+   temporary plan database: a cold build (a miss, plans scored), a warm one
+   (a hit, no plan scored, the same plans and tokens) and one with
+   ``autotune_plans``, whose plans (each forcing its tuned variants) must
+   emit identical greedy tokens in a kernel and a plain-version engine,
+   with prefill chunks of 8 rows and of 32.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -78,6 +97,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -116,6 +136,9 @@ CUDA_CORE_NAME = "flash_attention_f32_cuda_core"
 # phase 3: an mr plan whose even lane the kernels read from wsc (bits_w > p)
 WSC_PLAN = "a4w8-p7-n2-mr+full-c4"
 PACKED_MODES = ("int4_packed", "dsp_tuned", "dsp_packed")
+QUANT_MODES = ("int8",) + PACKED_MODES  # served again fused
+# phase 9: the block sweep's probes (an 8192 x 8192 linear, prefill and decode)
+SWEEP_SHAPE, SWEEP_DECODE = (64, 8192, 8192), (4, 8192, 8192)
 L2_BYTES = 50 * 2**20
 SLICE_N = 16384  # plain versions run in column slices to bound their memory
 
@@ -479,8 +502,11 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
 
 def serve_full_width(torch, K, P, card: str):
     """The main path at full width, one engine per mode built and freed;
-    then each packed mode again with ``fuse_projections="all"``, whose
-    greedy tokens must equal the unfused run's.  The fused runs get the
+    dsp_tuned also with ``autotune_plans`` (the tuner times the kernels at
+    every layer shape), whose greedy tokens must equal a plain-version
+    engine's on the same plans; then each packed mode again with
+    ``fuse_projections="all"``, whose greedy tokens must equal the
+    unfused run's.  The fused runs get the
     float tree fused once here (the engine's own fusion then finds nothing
     left to join) with the unfused tree freed first, so that dsp_tuned's
     build keeps the unfused run's peak memory."""
@@ -491,21 +517,38 @@ def serve_full_width(torch, K, P, card: str):
     prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in (5, 17, 30)]
     plan = P.ref.spec_from_name(MAIN_PLAN)
-    results, tokens = {}, {}
+    results, tokens, tables = {}, {}, {}
     torch.cuda.reset_peak_memory_stats()
 
-    def serve(mode: str, params, fuse: str) -> None:
-        key = mode if fuse == "none" else f"{mode}+fuse"
-        before = kernel_counts(K)
+    def serve(mode: str, params, fuse: str, key: str | None = None, table=None,
+              autotune: bool = False, use_kernel: bool | None = None) -> None:
+        key = key or (mode if fuse == "none" else f"{mode}+fuse")
+        at_build = kernel_counts(K)
         t0 = time.perf_counter()
         engine = P.Engine(cfg, params, P.ServeConfig(
             n_slots=4, max_len=64, prefill_chunk=16, max_new=8, quant_mode=mode,
-            fuse_projections=fuse, eos_token=-1, device="cuda"),  # no EOS: full budgets
-            # dsp_tuned: the main plan on every path of the tree served
-            plan_table={p: plan for p, _ in P.iter_packable_weights(params)}
-            if mode == "dsp_tuned" else None)
+            fuse_projections=fuse, eos_token=-1,  # no EOS: full budgets
+            autotune_plans=autotune, use_kernel=use_kernel, device="cuda"),
+            plan_table=table)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        # the build launches kernels only where autotune_plans times them
+        before = kernel_counts(K)
+        plans = None
+        if mode == "dsp_tuned":
+            tables[key] = dict(engine.plan_table)
+            names = {p: r.name for p, r in engine.plan_table.items()}
+            served = {p for p, _ in P.iter_packable_weights(params)}  # fused already
+            if set(names) != served:
+                raise RuntimeError(f"{key}: plans on {len(names)} of {len(served)} paths")
+            plans = {p: f"{r.name} ({r.block} / {r.decode_block})"
+                     for p, r in engine.plan_table.items()}
+            if not autotune and table is None and set(names.values()) != {MAIN_PLAN}:
+                raise RuntimeError(f"{key}: the tuner's plans {sorted(set(names.values()))},"
+                                   f" expected {MAIN_PLAN} on every path")
+            log(f"{key}: plans {sorted(set(plans.values()))} on {len(names)} packable "
+                f"paths, built in {build_s:.1f} s"
+                + (" (given)" if table is not None else " (the tuner's pick)"))
         warm = engine.generate([prompts[0][:4]], max_new=2)  # warm-up request
         sch = engine.scheduler
         tok0, time0 = sch.prefill_tokens, sch.prefill_time_s
@@ -530,25 +573,50 @@ def serve_full_width(torch, K, P, card: str):
             decode_ms_per_step=decode[len(decode) // 2],
             decode_ms_steps=decode,  # every decode step, sorted: the spread
             launches={k: after[k] - before[k] for k in after},
+            build_launches={k: before[k] - at_build[k] for k in before},
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            plans=plans,
         )
         log(f"serve {key:18s} on {card}: build {build_s:.1f} s, prefill "
             f"{results[key]['prefill_tok_s']:.1f} tok/s, decode "
             f"{results[key]['decode_ms_per_step']:.2f} ms/step (median), "
             f"launches {results[key]['launches']}, peak "
-            f"{results[key]['peak_gb']:.1f} GB")
+            f"{results[key]['peak_gb']:.1f} GB"
+            + (f", launched in the build (the sweep) {results[key]['build_launches']}"
+               if any(results[key]["build_launches"].values()) else ""))
         del engine, logits
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    for mode in ("native",) + PACKED_MODES:
+    # the hand table's dsp_tuned engine runs just before the tuner's, so
+    # that the two decode times meet the same host state
+    for mode in ("native", "int8", "int4_packed"):
         serve(mode, params, "none")
+    # the main plan by hand on every path of the tree served
+    serve("dsp_tuned", params, "none", key="dsp_tuned+table",
+          table={p: plan for p, _ in P.iter_packable_weights(params)})
+    for mode in ("dsp_tuned", "dsp_packed"):
+        serve(mode, params, "none")
+    if tokens["dsp_tuned+table"] != tokens["dsp_tuned"]:
+        raise RuntimeError(f"dsp_tuned: the tuner's engine {tokens['dsp_tuned']} != the "
+                           f"hand table's {tokens['dsp_tuned+table']}")
+    log("dsp_tuned: greedy tokens of the tuner's plans identical to the hand table's")
+    # the measured ranking at every layer shape, held to the plain version
+    # of the same plans (which launches no kernel)
+    serve("dsp_tuned", params, "none", key="dsp_tuned+autotune", autotune=True)
+    serve("dsp_tuned", params, "none", key="dsp_tuned+autotune+plain",
+          table=tables["dsp_tuned+autotune"], use_kernel=False)
+    if tokens["dsp_tuned+autotune"] != tokens["dsp_tuned+autotune+plain"]:
+        raise RuntimeError(f"dsp_tuned autotuned: kernel engine {tokens['dsp_tuned+autotune']}"
+                           f" != plain engine {tokens['dsp_tuned+autotune+plain']}")
+    log("dsp_tuned autotuned: greedy tokens identical to the plain-version engine's")
+    tables.clear()
     fused = P.fuse_projection_weights(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    for mode in PACKED_MODES:
+    for mode in QUANT_MODES:
         serve(mode, fused, "all")
         if tokens[f"{mode}+fuse"] != tokens[mode]:
             raise RuntimeError(f"{mode}: fused tokens {tokens[mode + '+fuse']} != "
@@ -558,6 +626,123 @@ def serve_full_width(torch, K, P, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     return results
+
+# ---- phase 9: the plan search on the card ------------------------------------
+
+
+def plan_search(torch, K, P, card: str, checks: list) -> dict:
+    """The tuner's ranking from a cold score cache, its kernel-variant
+    sweep at an 8192 x 8192 linear (prefill and decode), the top plan's
+    winners held against the plain version, then dsp_tuned engines at the
+    smoke config on one temporary plan database: cold, warm, autotuned."""
+    tuner = P.tuner
+    tuner._SCORE_CACHE.clear()
+    n0 = tuner.SCORED["specs"]
+    t0 = time.perf_counter()
+    ranked = tuner.rank_plans(4, 4, error_budget=0.5)
+    cold_s = time.perf_counter() - t0
+    n_scored = tuner.SCORED["specs"] - n0
+    log(f"plan search: {n_scored} plans scored, {len(ranked)} within budget 0.5, head "
+        f"{ranked[0].name}, {cold_s:.2f} s (cold score cache)")
+    t0 = time.perf_counter()
+    timed = tuner.rank_plans(4, 4, error_budget=0.5, autotune=True, shape=SWEEP_SHAPE,
+                             decode_shape=SWEEP_DECODE, device="cuda")
+    autotune_s = time.perf_counter() - t0
+    ranking = [dict(plan=r.name, block=r.block, us_per_call=r.us_per_call,
+                    decode_block=r.decode_block, decode_us_per_call=r.decode_us_per_call)
+               for r in timed]
+    log(f"plan search with autotune on {card}: {autotune_s:.1f} s, head {timed[0].name} "
+        f"({timed[0].block} {timed[0].us_per_call:.1f} us / {timed[0].decode_block} "
+        f"{timed[0].decode_us_per_call:.1f} us)")
+    # every in-budget plan's variants at both probes (the ranking keeps the
+    # winner, and sweeps decode for its head alone)
+    # and how many winners differ from the wrapper's own choice by M
+    sweep, off_rule = [], 0
+    for r in timed:
+        row = dict(plan=r.name)
+        for phase, shape in (("prefill", SWEEP_SHAPE), ("decode", SWEEP_DECODE)):
+            timings = P.autotune.autotune_block(r.spec, shape, device="cuda")
+            row[phase] = {t.block: t.us_per_call for t in timings}
+            off_rule += timings[0].block != K.prepacked_variant(shape[0], r.spec)
+        sweep.append(row)
+        log(f"sweep {r.name:26s} " + "; ".join(
+            f"M={shape[0]}: " + ", ".join(f"{v} {us:.1f} us" for v, us in row[phase].items())
+            for phase, shape in (("prefill", SWEEP_SHAPE), ("decode", SWEEP_DECODE))))
+    log(f"sweep: {off_rule} of {2 * len(timed)} winners differ from the wrapper's choice by M")
+    # the top plan's winners against the plain version at the probe shapes
+    top = timed[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for (m, k, n), variant in ((SWEEP_SHAPE, top.block), (SWEEP_DECODE, top.decode_block)):
+        spec = top.spec
+        w = torch.randint(-(1 << (spec.bits_w - 1)), 1 << (spec.bits_w - 1), (k, n),
+                          generator=gen, device="cuda", dtype=torch.int32)
+        packed = P.ref.pack_weight_words(w, spec)
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        zp = 1 << (spec.bits_a - 1)
+        scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
+        got = K.packed_matmul_prepacked(x, *packed, spec, x_scale=scale, x_zp=zp,
+                                        variant=variant)
+        want = K.packed_matmul_prepacked_plain(x, *packed, spec, x_scale=scale, x_zp=zp)
+        checks.append((variant, f"sweep winner {spec.name()} M={m} K={k} N={n}",
+                       max_diff(torch, got, want)))
+        del w, packed, got, want
+    # engine builds on one plan database at the smoke config
+    smoke = P.dataclasses.replace(P.get_config("qwen1.5-110b", smoke=True), dtype="float32")
+    sparams = P.T.init_params(smoke, seed=0, dtype=torch.float32, device="cuda")
+    prompts = [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
+    builds, tuned_table = {}, None
+    with P.tempfile.TemporaryDirectory() as db:
+        for name, autotune in (("cold", False), ("warm", False), ("autotune", True)):
+            tuner._SCORE_CACHE.clear()
+            n0 = tuner.SCORED["specs"]
+            t0 = time.perf_counter()
+            eng = P.Engine(smoke, sparams, P.ServeConfig(
+                n_slots=2, max_len=32, prefill_chunk=4, max_new=6, quant_mode="dsp_tuned",
+                autotune_plans=autotune, plan_db=db, device="cuda"))
+            build_s = time.perf_counter() - t0
+            stats = eng.stats()["plan_db"]
+            builds[name] = dict(
+                build_s=build_s, scored=tuner.SCORED["specs"] - n0, hits=stats["hits"],
+                misses=stats["misses"], stale=stats["stale"],
+                plans=sorted({f"{r.name} ({r.block} / {r.decode_block})"
+                              for r in eng.plan_table.values()}),
+                tokens=eng.generate(prompts))
+            log(f"plan db {name}: build {build_s:.2f} s, {builds[name]['scored']} plans "
+                f"scored, {stats['hits']} hit / {stats['misses']} miss, plans "
+                f"{builds[name]['plans']}")
+            if autotune:
+                tuned_table = dict(eng.plan_table)
+            del eng
+    # the autotuned plans, their kernel variants forced, against the plain
+    # version: prefill chunks of 4 rows x 2 slots run decode_block, of 16
+    # the prefill block
+    for chunk in (4, 16):
+        toks = [P.Engine(smoke, sparams, P.ServeConfig(
+                    n_slots=2, max_len=32, prefill_chunk=chunk, max_new=6,
+                    quant_mode="dsp_tuned", device="cuda", use_kernel=uk),
+                    plan_table=tuned_table).generate(prompts)
+                for uk in (True, False)]
+        if toks[0] != toks[1]:
+            raise RuntimeError(f"autotuned plans, chunk {chunk}: kernel engine {toks[0]} != "
+                               f"plain engine {toks[1]}")
+        log(f"agreement autotuned dsp_tuned (prefill chunk {chunk}): kernel and plain "
+            "engines emit identical tokens")
+    del sparams
+    cold, warm = builds["cold"], builds["warm"]
+    if (cold["misses"], cold["hits"]) != (1, 0) or cold["scored"] < 1:
+        raise RuntimeError(f"plan db: the cold build was not a scored miss: {cold}")
+    if (warm["misses"], warm["hits"], warm["scored"]) != (0, 1, 0):
+        raise RuntimeError(f"plan db: the warm build was not an unscored hit: {warm}")
+    if (warm["plans"], warm["tokens"]) != (cold["plans"], cold["tokens"]):
+        raise RuntimeError("plan db: the warm build serves other plans or tokens")
+    if builds["autotune"]["misses"] != 1:
+        raise RuntimeError("plan db: autotune_plans must key another entry")
+    return dict(cold_rank_s=cold_s, n_scored=n_scored, n_within=len(ranked),
+                proxy_head=ranked[0].name, autotune_rank_s=autotune_s, ranking=ranking,
+                sweep=sweep, winners_off_rule=off_rule,
+                builds={k: {n: v for n, v in b.items() if n != "tokens"}
+                        for k, b in builds.items()})
+
 
 # ---- phase 6: the paper's arithmetic on the card -----------------------------
 
@@ -877,12 +1062,14 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.models.layers import _repeat_kv
     from repro_torch.models.registry import get_config
     from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tuning import autotune, tuner
 
     P = types.SimpleNamespace(dataclasses=dataclasses, ref=ref, T=T, Engine=Engine,
                               ServeConfig=ServeConfig, get_config=get_config,
                               iter_packable_weights=iter_packable_weights,
                               fuse_projection_weights=fuse_projection_weights,
-                              repeat_kv=_repeat_kv)
+                              repeat_kv=_repeat_kv, tuner=tuner, autotune=autotune,
+                              tempfile=tempfile)
     M = types.SimpleNamespace(packing=packing, correction=correction, ref=ref)
 
     class K:  # the kernels' wrappers and plain versions
@@ -996,6 +1183,20 @@ def main(argv: list[str] | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 9: the plan search on the card: the tuner, its kernel-variant
+    # sweep (every candidate bit-exact to the first, the winners to the
+    # plain version) and the plan database
+    n_checks = len(checks)
+    search = plan_search(torch, K, P, card, checks)
+    bad = [c for c in checks[n_checks:] if c[2] != 0]
+    for c in bad:
+        log(f"MISMATCH {c[0]} {c[1]}: max abs diff {c[2]}")
+    if bad:
+        raise RuntimeError(f"{len(bad)} sweep winners disagree with the plain version")
+    log(f"plan search: {len(checks) - n_checks} sweep winners bit-exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
     head.update({r["kernel"]: r for r in rows
                  if (r["M"], r["K"], r["N"]) == HEADLINE_PREFILL and r["parent_ms"] is not None})
@@ -1060,7 +1261,7 @@ def main(argv: list[str] | None = None) -> int:
         json_path.write_text(json.dumps({
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": kernels, "timings": rows, "serving": serving_out,
-            "paper": paper_rows, "snn": snn, "attention": attn,
+            "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
             "attention_checks": attn_checks,
             "checks": len(checks), "seconds": time.perf_counter() - t_start,
         }, indent=1))

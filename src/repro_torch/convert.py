@@ -3,20 +3,19 @@
 ``params_from_numpy`` takes the reference's float parameter tree, handed
 over as a nested dict of numpy arrays, and returns the port's tree: the
 stacked ``groups`` axis becomes a per-layer list, every other key stays
-where it was.  ``spec_from_dict`` rebuilds a :class:`PackedDotSpec` from
+where it was.  ``spec_from_dict`` (the plan database's
+``tuning.plans.spec_from_json``) rebuilds a :class:`PackedDotSpec` from
 ``dataclasses.asdict`` of the reference's spec (its constructor
 re-validates), so plan tables cross over without importing the reference.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from .kernels.ref import PackedDotSpec
 from .models.config import ModelConfig
+from .tuning.plans import spec_from_json as spec_from_dict
 
 __all__ = ["params_from_numpy", "spec_from_dict"]
 
@@ -58,12 +57,3 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
-
-
-def spec_from_dict(d: dict) -> PackedDotSpec:
-    """``dataclasses.asdict`` of a reference ``PackedDotSpec`` -> the port's."""
-    fields = {f.name for f in dataclasses.fields(PackedDotSpec)}
-    unknown = set(d) - fields
-    if unknown:
-        raise ValueError(f"unknown PackedDotSpec fields {sorted(unknown)}")
-    return PackedDotSpec(**d)

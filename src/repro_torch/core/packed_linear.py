@@ -18,9 +18,14 @@ nibble leaf under another mode, a stacked leaf) is dequantized at use and
 multiplied in float, its activations unquantized
 (:func:`packed_params.materialize_weight`).
 
-``qat4``/``qat8`` (training) and ``int8`` are accepted as names, so that a
-reference configuration reads the same, and raise ``NotImplementedError``
-on a float leaf.
+* ``int8``        — activations signed int8 per row, weights per output
+  channel, quantized at every call; the exact integer product
+  (:func:`ref.ref_quantized_matmul`), then the two scales.  No kernel: the
+  reference computes this product outside any Pallas kernel too.
+
+``qat4``/``qat8`` (training) are accepted as names, so that a reference
+configuration reads the same, and raise ``NotImplementedError`` on a float
+leaf.
 """
 
 from __future__ import annotations
@@ -30,7 +35,12 @@ import dataclasses
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import INT4_EXACT, PackedDotSpec, pack_int4_weights
+from ..kernels.ref import (
+    INT4_EXACT,
+    PackedDotSpec,
+    pack_int4_weights,
+    ref_quantized_matmul,
+)
 from .packed_params import is_dsp_tuned_leaf, is_packed_leaf, materialize_weight
 from .quantize import quantize_signed
 
@@ -42,7 +52,6 @@ MODES = ("native", "qat4", "qat8", "int8", "int4_packed", "dsp_packed",
 _NOT_PORTED = {
     "qat4": "ROADMAP queue 11 (training)",
     "qat8": "ROADMAP queue 11 (training)",
-    "int8": "a later slice of ROADMAP queue 3",
 }
 
 
@@ -72,6 +81,7 @@ def apply_linear(params: dict, x: torch.Tensor,
                 x2, w.words, w.wsc, w.zp_row, w.scale, w.w_f32, w.spec,
                 use_kernel=spec.use_kernel,
                 exact_f32=w.w_f32 is not None and not spec.use_kernel,
+                variant=w.block_for(x2.shape[0]),
             )
         else:
             y = ops.dsp_tuned_matmul_f32(
@@ -97,6 +107,13 @@ def apply_linear(params: dict, x: torch.Tensor,
         )
     elif mode in ("native", "dsp_tuned"):
         y = x @ w.to(x.dtype)
+    elif mode == "int8":
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        xq = quantize_signed(x2, bits=8, axis=-1)
+        wq = quantize_signed(w.to(torch.float32), bits=8, axis=0)
+        acc = ref_quantized_matmul(xq.values, wq.values)
+        y = (acc.to(torch.float32) * xq.scale * wq.scale).reshape(
+            *lead, w.shape[1]).to(x.dtype)
     elif mode == "int4_packed":
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         wq = quantize_signed(w.to(torch.float32), bits=4, axis=0)

@@ -4,8 +4,8 @@ Counterpart of the reference's ``repro.core.packed_params`` for the modes
 of the port: ``int4_packed`` stores every matmul weight as int4 nibbles,
 two per uint8 byte, plus a per-output-channel f32 scale; ``dsp_tuned``
 quantizes each weight once onto its plan's signed grid and keeps it in a
-:class:`DspTunedLeaf`; ``dsp_packed`` and ``native`` keep float weights
-(``dsp_packed`` quantizes at the point of use).
+:class:`DspTunedLeaf`; ``int8``, ``dsp_packed`` and ``native`` keep float
+weights (``int8`` and ``dsp_packed`` quantize at the point of use).
 
 Parameters are nested dicts of tensors; a list (the per-layer ``groups``)
 adds no component to a weight's path, so every layer of the stack has the
@@ -26,6 +26,7 @@ from typing import Any, Iterator
 import torch
 
 from ..kernels import ref
+from ..kernels.packed_matmul import TILED_MIN_M
 from ..kernels.ref import INT4_EXACT, PackedDotSpec
 from .quantize import quantize_signed, zero_point_correction
 
@@ -46,7 +47,7 @@ __all__ = [
 
 MIN_DIM = 32  # tiny matrices stay exact
 
-SERVING_MODES = ("native", "int4_packed", "dsp_packed", "dsp_tuned")
+SERVING_MODES = ("native", "int8", "int4_packed", "dsp_packed", "dsp_tuned")
 
 
 def is_packed_leaf(p) -> bool:
@@ -86,16 +87,27 @@ class DspTunedLeaf:
     ``prepack`` the compute operands of the module docstring are built
     once; ``keep_w_f32`` adds the f32 grid for the CPU shortcut, and only
     when the plan is ``exact`` and the operand bound fits the f32 mantissa.
-    ``exact`` is the carried plan's verdict when given, else
-    ``spec.provably_exact``.
+    ``exact`` is the carried plan's verdict when given, else the static
+    certificate's (``analysis.verify.certify_spec``, which proves
+    exactness for a superset of ``spec.provably_exact``).  ``block`` and
+    ``decode_block`` are the tuned kernel variants of the plan's block
+    sweep (``tuning.autotune``), above 16 rows and at 16 or fewer; None
+    lets the wrapper choose by M.
     """
 
     def __init__(self, values: torch.Tensor, scale: torch.Tensor,
-                 spec: PackedDotSpec, *, exact: bool | None = None,
+                 spec: PackedDotSpec, block: str | None = None, *,
+                 decode_block: str | None = None, exact: bool | None = None,
                  prepack: bool = True, keep_w_f32: bool = False):
         self.scale = scale
         self.spec = spec
-        self.exact = spec.provably_exact if exact is None else bool(exact)
+        self.block = block
+        self.decode_block = decode_block
+        if exact is None:
+            from ..analysis.verify import certify_spec
+
+            exact = certify_spec(spec).exact
+        self.exact = bool(exact)
         if spec.bits_w <= 4 and values.shape[-2] % 2 == 0:
             self.payload = pack_signed_nibbles(values)
         else:
@@ -127,6 +139,11 @@ class DspTunedLeaf:
     @property
     def prepacked(self) -> bool:
         return self.words is not None
+
+    def block_for(self, m: int) -> str | None:
+        """The tuned kernel variant for ``m`` rows: ``decode_block`` at 16
+        rows or fewer (the decode GEMVs), ``block`` above."""
+        return self.decode_block if m < TILED_MIN_M else self.block
 
 
 def dequantize_packed(p: dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -238,12 +255,27 @@ def _pack_matrix(w: torch.Tensor, keep_w_f32: bool) -> dict:
     return leaf
 
 
-def _tune_matrix(w: torch.Tensor, spec: PackedDotSpec, prepack: bool,
+def _tune_matrix(w: torch.Tensor, plan: tuple, prepack: bool,
                  keep_w_f32: bool) -> DspTunedLeaf:
-    """(d_in, d_out) float -> plan-grid signed ints + per-channel scale."""
+    """(d_in, d_out) float -> plan-grid signed ints + per-channel scale;
+    ``plan`` is (spec, block, decode_block, exact)."""
+    spec, block, decode_block, exact = plan
     q = quantize_signed(w.to(torch.float32), bits=spec.bits_w, axis=0)
-    return DspTunedLeaf(q.values, q.scale, spec, prepack=prepack,
-                        keep_w_f32=keep_w_f32)
+    return DspTunedLeaf(q.values, q.scale, spec, block, decode_block=decode_block,
+                        exact=exact, prepack=prepack, keep_w_f32=keep_w_f32)
+
+
+def _leaf_plan(plan) -> tuple:
+    """(spec, block, decode_block, exact) of a plan-table entry: None (the
+    exact int4 preset), a :class:`PackedDotSpec`, or a
+    ``tuning.PlanReport`` (its tuned variants, and exact where its
+    certificate proves it or an exhaustive grid measured no error)."""
+    if plan is None:
+        return INT4_EXACT, None, None, None
+    if isinstance(plan, PackedDotSpec):
+        return plan, None, None, None
+    exact = plan.certificate.exact or (plan.mae == 0 and plan.exhaustive)
+    return plan.spec, plan.block, plan.decode_block, exact
 
 
 def _convert_tree(params, targets: dict, convert):
@@ -274,9 +306,11 @@ def quantize_for_serving(params, mode: str = "int4_packed",
 
     ``int4_packed`` packs every large matmul weight to nibbles once.
     ``dsp_tuned`` quantizes each weight onto its plan (``plans``: a
-    ``{path: PackedDotSpec}`` table; a path missing from it falls back to
-    :data:`INT4_EXACT`) and stores :class:`DspTunedLeaf` leaves.
-    ``dsp_packed`` and ``native`` return the float tree.  ``use_kernel``
+    ``{path: PlanReport or PackedDotSpec}`` table, as
+    ``tuning.plan_linear_layers`` builds it; a path missing from it falls
+    back to :data:`INT4_EXACT`) and stores :class:`DspTunedLeaf` leaves.
+    ``int8``, ``dsp_packed`` and ``native`` return the float tree (the
+    first two quantize at the point of use).  ``use_kernel``
     says where the leaves will be served: the CPU's f32 shortcut operands
     are built only when it is false.
     """
@@ -291,7 +325,7 @@ def quantize_for_serving(params, mode: str = "int4_packed",
         )
     if mode == "dsp_tuned":
         plans = plans or {}
-        targets = {p: plans.get(p, INT4_EXACT) for p in paths}
+        targets = {p: _leaf_plan(plans.get(p)) for p in paths}
         return _convert_tree(
             params, targets,
             lambda w, spec: _tune_matrix(w, spec, prepack, keep_w_f32),

@@ -29,6 +29,7 @@ __all__ = [
     "dsp_tuned_matmul_prepacked_f32",
     "int4_matmul_f32",
     "int4_prepacked_matmul_f32",
+    "quantized_matmul_ref",
     "pin_full_f32",
 ]
 
@@ -102,20 +103,24 @@ def dsp_tuned_matmul_prepacked_f32(
     spec: PackedDotSpec,
     use_kernel: bool = True,
     exact_f32: bool = False,
+    variant: str | None = None,
 ) -> torch.Tensor:
     """float (M, K) x prepacked tuned-plan weights -> f32 (M, N).
 
     Kernel path: the activation quantize is fused into the kernel's
-    prologue.  ``exact_f32`` (CPU path only, for plans proven exact whose
-    operand bound fits the f32 mantissa — a leaf's ``w_f32`` encodes both)
-    evaluates the identical integer matmul as an f32 GEMM.
+    prologue; ``variant`` (a tuned leaf's block for this M) names the
+    kernel, else the wrapper chooses by M.  ``exact_f32`` (CPU path only,
+    for plans proven exact whose operand bound fits the f32 mantissa — a
+    leaf's ``w_f32`` encodes both) evaluates the identical integer matmul
+    as an f32 GEMM.
     """
     zp = 1 << (spec.bits_a - 1)
     if use_kernel:
         _require_kernel_device(x, "dsp_tuned_matmul_prepacked_f32")
         x_scale = _row_scale(x, zp - 1)
         acc = packed_matmul_prepacked(
-            x.contiguous(), words, wsc, spec, x_scale=x_scale, x_zp=zp
+            x.contiguous(), words, wsc, spec, x_scale=x_scale, x_zp=zp,
+            variant=variant,
         )
         out_scale = x_scale
     elif exact_f32 and w_f32 is not None:
@@ -167,3 +172,14 @@ def int4_prepacked_matmul_f32(
     q = torch.round(x / scale)
     acc = q @ w_f32
     return acc * scale * w_scale
+
+
+def quantized_matmul_ref(x: torch.Tensor, w: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """Exact-arithmetic quantized matmul, no packing: the accuracy oracle.
+    Activations offset-binary per row, weights signed per output channel,
+    the exact integer product less the zero-point term, then the scales."""
+    xq = quantize_unsigned(x, bits=bits, axis=-1)
+    wq = quantize_signed(w, bits=bits, axis=0)
+    acc = ref.ref_quantized_matmul(xq.values, wq.values)
+    acc = acc - zero_point_correction(wq.values, xq.zero_point)[None, :]
+    return acc.to(torch.float32) * xq.scale * wq.scale

@@ -12,7 +12,9 @@ Counterparts of the reference's ``repro.kernels.packed_matmul``:
   tiled design on the stored words, the quantize fused per stage) above.
   Both derive the mr contamination's even weights from the pair words
   where ``bits_w <= p`` (:func:`even_lane`) and read ``wsc`` only for the
-  other mr plans.
+  other mr plans.  ``variant=`` launches a given one of them, where its
+  stage fits (:func:`prepacked_variants`): the tuner's block sweep
+  (``tuning.autotune``) times them and a tuned leaf carries the winner.
 * :func:`packed_matmul` — (M, K) unsigned ints x (K, N) signed ints, the
   weights packed into words as the kernel reads them.  Two kernels share
   this entry, chosen by M (:data:`VARIANTS`): ``packed_matmul`` (at most
@@ -45,9 +47,11 @@ __all__ = [
     "VARIANTS",
     "PREPACKED_KERNELS",
     "PREPACKED_VARIANTS",
+    "PREPACKED_PLAIN",
     "TILED_MIN_M",
     "variant_for",
     "prepacked_variant_for",
+    "prepacked_variants",
     "derives_even_lane",
     "even_lane",
     "raw_cols_per_thread",
@@ -66,6 +70,7 @@ _WIDE_MIN_K = 64          # ... with at least this many k a split
 
 VARIANTS = ("packed_matmul", "packed_matmul_tiled")
 PREPACKED_VARIANTS = ("packed_matmul_prepacked", "packed_matmul_prepacked_tiled")
+PREPACKED_PLAIN = "packed_matmul_prepacked_plain"  # the one choice on the CPU
 TILED_MIN_M = 17            # the tiled kernel takes M >= TILED_MIN_M
 _TILE_M, _TILE_N, _TILE_STAGES = 64, 128, 3  # csrc tiled::kBM, kBN, kStages
 _TILE_SMEM = 200 * 1024     # larger plans (very long chunks) keep the first kernel
@@ -193,6 +198,7 @@ def packed_matmul_prepacked(
     spec: PackedDotSpec = INT4_EXACT,
     x_scale: torch.Tensor | None = None,
     x_zp: int | None = None,
+    variant: str | None = None,
 ) -> torch.Tensor:
     """(M, K) activations x prepacked words (n_chunks, n_pairs, N) -> (M, N)
     int32.
@@ -200,8 +206,11 @@ def packed_matmul_prepacked(
     ``x_scale`` ((M, 1) or (M,) f32, the row absmax scale over the full K)
     and ``x_zp`` fuse the activation quantize: ``x`` is then the raw f32
     activation.  Without them ``x`` holds unsigned integers.  ``wsc`` is
-    required for mr plans.  ``K`` may be shorter than the words' K.  Every
-    launch counts in ``launches`` and in ``variant_launches[variant]``.
+    required for mr plans.  ``K`` may be shorter than the words' K.
+    ``variant`` names the kernel to launch (one of
+    :func:`prepacked_variants`; default :func:`prepacked_variant_for`); on
+    CPU tensors only :data:`PREPACKED_PLAIN` is one.  Every launch counts in
+    ``launches`` and in ``variant_launches[variant]``.
     """
     if x.dim() != 2 or words.dim() != 3 or words.shape[1] != spec.n_pairs:
         raise ValueError(
@@ -222,9 +231,14 @@ def packed_matmul_prepacked(
             f"{spec.name()} is an mr plan: packed_matmul_prepacked needs "
             "the wsc contamination operands from pack_weight_words"
         )
+    if variant is not None and variant not in prepacked_variants(spec, x.device):
+        raise ValueError(
+            f"variant {variant!r} cannot run {spec.name()} on {x.device}; "
+            f"choices: {prepacked_variants(spec, x.device)}"
+        )
     if not x.is_cuda:
         return packed_matmul_prepacked_plain(x, words, wsc, spec, x_scale, x_zp)
-    variant = prepacked_variant_for(m, spec)
+    variant = variant or prepacked_variant_for(m, spec)
     return PREPACKED_KERNELS[variant](x, words, wsc, spec, x_scale, x_zp)
 
 
@@ -330,11 +344,23 @@ def _prepacked_tiled_geometry(spec: PackedDotSpec) -> tuple[int, int]:
     return per, 4 * words
 
 
+def _tiled_stage_fits(spec: PackedDotSpec) -> bool:
+    return _prepacked_tiled_geometry(spec)[1] <= _TILE_SMEM
+
+
 def prepacked_variant_for(m: int, spec: PackedDotSpec) -> str:
     """The kernel :func:`packed_matmul_prepacked` launches for ``m`` rows:
     the tiled one above 16 rows, unless the plan's stage would not fit."""
-    return PREPACKED_VARIANTS[m >= TILED_MIN_M
-                              and _prepacked_tiled_geometry(spec)[1] <= _TILE_SMEM]
+    return PREPACKED_VARIANTS[m >= TILED_MIN_M and _tiled_stage_fits(spec)]
+
+
+def prepacked_variants(spec: PackedDotSpec, device) -> tuple[str, ...]:
+    """The kernels :func:`packed_matmul_prepacked` can launch for ``spec``
+    at any M on ``device``: on the card the M <= 16 kernel, and the tiled
+    one where its stage fits; on the CPU the plain version alone."""
+    if torch.device(device).type != "cuda":
+        return (PREPACKED_PLAIN,)
+    return PREPACKED_VARIANTS if _tiled_stage_fits(spec) else PREPACKED_VARIANTS[:1]
 
 
 PREPACKED_KERNELS = {"packed_matmul_prepacked": _prepacked_columns,

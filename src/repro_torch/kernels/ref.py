@@ -211,6 +211,12 @@ class PackedDotSpec:
         return self.p + (self.mr_bits if self.uses_mr else 0)
 
     @property
+    def delta(self) -> int:
+        """Per-product padding in the paper's notation: spacing − result
+        width (per column: a column's products are col_bits_a × bits_w)."""
+        return self.p - (self.col_bits_a + self.bits_w)
+
+    @property
     def provably_exact(self) -> bool:
         """Whether extraction is bit-exact for every operand combination:
         always for ``full``; for ``mr+full`` iff the accumulated low field

@@ -1,15 +1,18 @@
 """Serving CLI: batched requests through the fixed-slot engine.
 
   python -m repro_torch.launch.serve --arch qwen1.5-110b --smoke \\
-      --quant dsp_tuned --plan a4w4-p10-n32-mr+full-c2 --fuse all
+      --quant dsp_tuned --plan-bits 4,4 --error-budget 0.5 --fuse all
 
 Runs on the card by default (``--device cuda``, the CUDA kernels);
-``--device cpu`` serves the plain versions.  ``--plan NAME`` serves one
-tuned plan on every packable weight under ``--quant dsp_tuned``; it stands
-in for the reference's plan search (``--plan-bits``/``--error-budget``)
-until the tuner is ported (ROADMAP queue 6).  ``--fuse mlp`` joins up|gate
-at engine build, ``--fuse all`` also q|k|v (packed modes; each output
-column stays bit-identical).
+``--device cpu`` serves the plain versions.  Under ``--quant dsp_tuned``
+the tuner picks each layer's plan for ``--plan-bits`` within
+``--error-budget`` (MAE per extraction); ``--autotune-plans`` ranks the
+plans by timing the CUDA kernels' variants on the card (the plain version
+on the CPU) and prints each plan's variant per phase; ``--plan-db DIR``
+keeps the tuned tables in a plan database, so that a restarted engine
+builds without searching.  ``--fuse mlp`` joins up|gate at engine build,
+``--fuse all`` also q|k|v (quantized modes; each output column stays
+bit-identical).
 """
 
 from __future__ import annotations
@@ -19,8 +22,6 @@ import time
 
 import numpy as np
 
-from ..core.packed_params import fuse_projection_weights, iter_packable_weights
-from ..kernels.ref import spec_from_name
 from ..models import transformer as T
 from ..models.registry import get_config
 from ..serving import Engine, SamplingParams, ServeConfig
@@ -38,11 +39,36 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--stream", action="store_true",
                     help="print (rid, token) pairs as they are emitted")
     ap.add_argument("--quant", default="native",
-                    choices=["native", "int4_packed", "dsp_packed", "dsp_tuned"])
-    ap.add_argument("--plan", default=None, metavar="NAME",
-                    help="dsp_tuned: the plan served on every packable "
-                         "weight, e.g. a4w4-p10-n32-mr+full-c2 (default: "
-                         "the exact int4 preset)")
+                    choices=["native", "int8", "int4_packed", "dsp_packed",
+                             "dsp_tuned"])
+    ap.add_argument("--error-budget", type=float, default=0.5,
+                    help="dsp_tuned: max MAE per extraction a plan may incur")
+
+    def _plan_bits(arg: str) -> tuple[int, int] | str:
+        if arg == "auto":
+            return "auto"
+        try:
+            a_bits, w_bits = (int(b) for b in arg.split(","))
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"--plan-bits wants two comma-separated ints 'A,W' "
+                f"(e.g. 8,8) or 'auto', got {arg!r}"
+            )
+        return a_bits, w_bits
+
+    ap.add_argument("--plan-bits", type=_plan_bits, default=(4, 4),
+                    metavar="A,W|auto",
+                    help="dsp_tuned: operand widths to plan for, e.g. 8,8 "
+                         "(8-bit widths serve multi-DSP column-packed "
+                         "plans); 'auto' (per-layer widths, dsp_mixed) is "
+                         "not ported yet")
+    ap.add_argument("--autotune-plans", action="store_true",
+                    help="dsp_tuned: rank plans by timing the kernel "
+                         "variants per layer shape and serving phase")
+    ap.add_argument("--plan-db", default=None, metavar="DIR",
+                    help="persisted plan database directory: engine build "
+                         "consults it before the dsp_tuned plan search and "
+                         "stores a cold search back")
     ap.add_argument("--no-prepack", dest="prepack", action="store_false",
                     help="dsp_tuned: pack the weight words on every call")
     ap.add_argument("--fuse", dest="fuse_projections", default="none",
@@ -56,31 +82,30 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.plan is not None and args.quant != "dsp_tuned":
-        ap.error("--plan needs --quant dsp_tuned")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     params = T.init_params(cfg, seed=0, device=args.device)
-    plan_table = None
-    if args.plan is not None:
-        # the table is keyed by the served tree's paths: fuse here, and the
-        # engine's own fusion finds nothing left to join
-        if args.fuse_projections != "none":
-            params = fuse_projection_weights(params,
-                                             fuse_attn=args.fuse_projections == "all")
-        spec = spec_from_name(args.plan)
-        plan_table = {p: spec for p, _ in iter_packable_weights(params)}
     serve_cfg = ServeConfig(
         n_slots=args.slots, max_len=args.max_len,
         prefill_chunk=args.prefill_chunk, quant_mode=args.quant,
         prepack=args.prepack, fuse_projections=args.fuse_projections,
+        plan_bits=args.plan_bits, error_budget=args.error_budget,
+        autotune_plans=args.autotune_plans, plan_db=args.plan_db,
         temperature=args.temperature, top_k=args.top_k,
         top_p=args.top_p, seed=args.seed, device=args.device,
     )
-    engine = Engine(cfg, params, serve_cfg, plan_table=plan_table)
+    engine = Engine(cfg, params, serve_cfg)
     if engine.plan_table:
-        print("[serve] packing plans: "
-              + ", ".join(sorted({s.name() for s in engine.plan_table.values()})))
+        plans = {r.name for r in engine.plan_table.values()}
+        print(f"[serve] tuned packing plans (budget {args.error_budget}): "
+              + ", ".join(sorted(plans)))
+        if args.autotune_plans:
+            per_phase = {
+                f"{r.name}: prefill {r.block} / decode {r.decode_block}"
+                for r in engine.plan_table.values()
+            }
+            print("[serve] per-phase tuned kernel variants: "
+                  + "; ".join(sorted(per_phase)))
     sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
     rng = np.random.default_rng(0)
     prompts = [
@@ -111,6 +136,12 @@ def main(argv: list[str] | None = None) -> None:
           f"use_kernel={engine.use_kernel}, "
           f"prefill {stats['prefill_tok_s']:.1f} tok/s, "
           f"decode {stats['decode_tok_s']:.1f} tok/s)")
+    if "plan_db" in stats:
+        db = stats["plan_db"]
+        warm = "warm" if db["hits"] else "cold"
+        print(f"[serve] plan db {db['directory']}: {warm} build "
+              f"({db['hits']} hit / {db['misses']} miss / "
+              f"{db['stale']} stale, key {db['key'][:12]})")
 
 
 if __name__ == "__main__":

@@ -14,15 +14,20 @@ queued requests into free slots and finished sequences free them.
 * **sampling** — greedy or temperature/top-k/top-p per slot
   (``serving.sampling``).
 
-``quant_mode`` selects the weight path (``native``, ``int4_packed``,
-``dsp_packed``, ``dsp_tuned``), converted once at build
+``quant_mode`` selects the weight path (``native``, ``int8``,
+``int4_packed``, ``dsp_packed``, ``dsp_tuned``), converted once at build
 (``core.packed_params.quantize_for_serving``); ``fuse_projections`` first
-joins q|k|v and up|gate in the packed modes
-(``core.packed_params.fuse_projection_weights``).  Until the tuner is ported
-(ROADMAP queue 6), the ``dsp_tuned`` plans come in as a constructor
-argument, ``plan_table={path: PackedDotSpec}``, keyed by the paths of the
-tree that is served (the fused one when fusing); a path absent from it
-serves :data:`INT4_EXACT`.  Termination goes through one code path
+joins q|k|v and up|gate in the quantized modes
+(``core.packed_params.fuse_projection_weights``).  Under ``dsp_tuned`` the
+tuner (``tuning.plan_linear_layers``) picks per layer the fastest plan of
+``plan_bits`` whose MAE per extraction fits ``error_budget``, ranking
+proven-exact plans first off the kernels, as the reference does; with
+``plan_db`` the build consults the persisted plan database first
+(``tuning.plandb``) and stores a cold search's table back.
+:attr:`Engine.plan_table` maps each packable path of the served (fused)
+tree to its ``tuning.PlanReport``.  A ``plan_table={path: PackedDotSpec}``
+given to the constructor overrides the search (a path absent from it
+serves :data:`INT4_EXACT`).  Termination goes through one code path
 (``_finish_slot``): EOS, per-request ``max_new`` and the cache capacity;
 :meth:`Engine.cancel` aborts a request from outside.
 """
@@ -46,24 +51,29 @@ from ..device import resolve_device
 from ..kernels.ref import INT4_EXACT, PackedDotSpec
 from ..models import transformer as T
 from ..models.config import ModelConfig
+from ..tuning import PlanDB, PlanReport, plan_key, plan_linear_layers
+from ..tuning.plandb import report_from_json, report_to_json
+from ..tuning.tuner import plan_report
 from .sampling import SamplingParams, row_seed, sample_tokens
 from .scheduler import Scheduler
 
 __all__ = ["ServeConfig", "Engine"]
 
 # reference knobs of later slices: rejected by name while unported
+_NEXT_SLICE = "ROADMAP queue 6 (tuning/mixed.py, the next slice)"
 _LATER = {
     "governor": "ROADMAP queue 9 (load policy)",
     "deadline_ms": "ROADMAP queue 9 (load policy)",
     "page_size": "ROADMAP queue 9 (paged continuous serving)",
     "n_pages": "ROADMAP queue 9 (paged continuous serving)",
     "watermark_pages": "ROADMAP queue 9 (paged continuous serving)",
-    "plan_db": "ROADMAP queue 6 (plan search)",
+    "mixed_budget": _NEXT_SLICE,
+    "width_candidates": _NEXT_SLICE,
+    "calib_tokens": _NEXT_SLICE,
     "tp": "ROADMAP queue 10 (tensor parallelism)",
 }
 _LATER_MODES = {
-    "dsp_mixed": "ROADMAP queue 6 (plan search)",
-    "int8": "a later slice of ROADMAP queue 3",
+    "dsp_mixed": _NEXT_SLICE,
     "none": "use 'native'",
 }
 
@@ -73,10 +83,14 @@ class ServeConfig:
     """Everything the engine decides at build time, in one frozen record.
 
     ``device`` defaults to ``"cuda"`` and ``use_kernel`` (``None``) to
-    "the CUDA kernels on a CUDA device".  The reference's governor, tensor
-    parallelism, plan database, deadlines and paged-cache settings are
-    fields so that a reference configuration reads the same; setting one
-    raises, naming the roadmap queue that ports it.
+    "the CUDA kernels on a CUDA device".  ``plan_bits``, ``error_budget``
+    and ``autotune_plans`` steer the ``dsp_tuned`` plan search (the
+    wall-clock sweep times the CUDA kernels' variants on the card),
+    ``plan_db`` names a plan-database directory.  The reference's governor,
+    tensor parallelism, deadlines, paged-cache settings and ``dsp_mixed``
+    knobs (``plan_bits="auto"``, ``mixed_budget``, ``width_candidates``,
+    ``calib_tokens``) are fields so that a reference configuration reads
+    the same; setting one raises, naming the roadmap queue that ports it.
     """
 
     n_slots: int = 8
@@ -87,9 +101,20 @@ class ServeConfig:
     quant_mode: str = "native"
     use_kernel: bool | None = None
     prepack: bool = True       # dsp_tuned: build the pair words once
-    # packed modes: "mlp" fuses up|gate at build, "all" (or True) also
+    # quantized modes: "mlp" fuses up|gate at build, "all" (or True) also
     # q|k|v; each output column stays bit-identical
     fuse_projections: bool | str = "none"
+    # dsp_tuned plan search: operand widths, MAE-per-extraction budget and
+    # the wall-clock sweep of the kernel variants (off: the cost proxy)
+    plan_bits: tuple[int, int] | str = (4, 4)
+    error_budget: float = 0.5
+    autotune_plans: bool = False
+    # dsp_mixed (the next slice)
+    mixed_budget: float = 0.05
+    width_candidates: tuple[tuple[int, int], ...] | None = None
+    calib_tokens: int = 32
+    # persisted plan database directory (tuning.plandb); None = always search
+    plan_db: str | None = None
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -100,7 +125,6 @@ class ServeConfig:
     page_size: int | None = None
     n_pages: int | None = None
     watermark_pages: int | None = None
-    plan_db: str | None = None
     tp: int = 1
 
     def __post_init__(self) -> None:
@@ -110,6 +134,15 @@ class ServeConfig:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is not ported yet: {queue}"
                 )
+        if self.plan_bits == "auto":
+            raise NotImplementedError(
+                f'ServeConfig.plan_bits="auto" is not ported yet: {_NEXT_SLICE}'
+            )
+        if isinstance(self.plan_bits, str):
+            raise ValueError(
+                f"plan_bits {self.plan_bits!r} must be a (a_bits, w_bits) "
+                'pair or "auto"'
+            )
         if self.quant_mode in _LATER_MODES:
             raise NotImplementedError(
                 f"quant_mode {self.quant_mode!r} is not ported yet: "
@@ -128,19 +161,59 @@ class ServeConfig:
             raise ValueError("n_slots, max_len and prefill_chunk must be >= 1")
 
 
+def _tuned_plans(cfg: ModelConfig, params, scfg: ServeConfig, use_kernel: bool,
+                 device: torch.device, plan_table):
+    """The ``dsp_tuned`` plan table over every packable path of the served
+    tree, and the plan database's counters (None without one).  A given
+    ``plan_table`` is served as given ({path: PackedDotSpec or PlanReport},
+    ``INT4_EXACT`` where a path is absent) and bypasses the database;
+    otherwise the database is consulted, then the tuner searches and the
+    table is stored back."""
+    if plan_table is not None:
+        def report(plan):
+            return plan_report(plan) if isinstance(plan, PackedDotSpec) else plan
+
+        return {p: report(plan_table.get(p, INT4_EXACT))
+                for p, _ in iter_packable_weights(params)}, None
+    db = key = None
+    if scfg.plan_db:
+        db = PlanDB(scfg.plan_db)
+        key = plan_key(cfg, scfg, params)
+        entry = db.get(key)
+        if entry is not None and entry.get("kind") == "tuned":
+            table = {p: report_from_json(r) for p, r in entry["plans"].items()}
+            return table, _db_stats(db, key)
+    a_bits, w_bits = scfg.plan_bits
+    table = plan_linear_layers(
+        params, a_bits=a_bits, w_bits=w_bits, error_budget=scfg.error_budget,
+        autotune=scfg.autotune_plans, device=device,
+        # off the kernels, proven-exact plans run through the f32-GEMM
+        # shortcut: rank those first (see tuning.rank_plans)
+        exact_first=not use_kernel,
+    )
+    if db is not None:
+        db.put(key, {"kind": "tuned",
+                     "plans": {p: report_to_json(r) for p, r in table.items()}})
+    return table, None if db is None else _db_stats(db, key)
+
+
+def _db_stats(db: PlanDB, key: str) -> dict:
+    return {"directory": db.directory, "key": key, "hits": db.n_hits,
+            "misses": db.n_misses, "stale": db.n_stale}
+
+
 def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
-                            use_kernel: bool, plan_table):
-    """Switch the arithmetic mode, fuse same-input projections if asked, and
-    quantize the weights onto the mode.  Returns ``(cfg, params,
-    plan_table)``; for ``dsp_tuned`` the table is resolved over every
-    packable path of the served (fused) tree, ``INT4_EXACT`` where absent."""
+                            use_kernel: bool, device: torch.device, plan_table):
+    """Switch the arithmetic mode, fuse same-input projections if asked, run
+    the ``dsp_tuned`` plan search and quantize the weights onto the mode.
+    Returns ``(cfg, params, plan_table, plan_db_stats)``."""
     if plan_table is not None and scfg.quant_mode != "dsp_tuned":
         raise ValueError(
             f"plan_table was given but quant_mode is {scfg.quant_mode!r}; "
             "it is only served under 'dsp_tuned'"
         )
     if scfg.quant_mode == "native":
-        return cfg, params, {}
+        return cfg, params, {}, None
     cfg = dataclasses.replace(
         cfg, quant=dataclasses.replace(
             cfg.quant, mode=scfg.quant_mode, use_kernel=use_kernel
@@ -150,16 +223,15 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
     if fuse not in (False, "none"):
         params = fuse_projection_weights(params, fuse_attn=fuse in (True, "all"),
                                          fuse_mlp=True)
-    resolved: dict[str, PackedDotSpec] = {}
+    table, db_stats = {}, None
     if scfg.quant_mode == "dsp_tuned":
-        plan_table = plan_table or {}
-        resolved = {p: plan_table.get(p, INT4_EXACT)
-                    for p, _ in iter_packable_weights(params)}
+        table, db_stats = _tuned_plans(cfg, params, scfg, use_kernel, device,
+                                       plan_table)
     params = quantize_for_serving(
-        params, scfg.quant_mode, plans=resolved, prepack=scfg.prepack,
+        params, scfg.quant_mode, plans=table, prepack=scfg.prepack,
         use_kernel=use_kernel,
     )
-    return cfg, params, resolved
+    return cfg, params, table, db_stats
 
 
 class Engine:
@@ -175,7 +247,7 @@ class Engine:
     """
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 plan_table: dict[str, PackedDotSpec] | None = None):
+                 plan_table: dict[str, PackedDotSpec | PlanReport] | None = None):
         self.device = resolve_device(serve_cfg.device)
         use_kernel = (self.device.type == "cuda" if serve_cfg.use_kernel is None
                       else serve_cfg.use_kernel)
@@ -187,8 +259,8 @@ class Engine:
             raise ValueError(f"params lie on {embed.device}, the engine serves "
                              f"on {self.device}")
         self.use_kernel = use_kernel
-        cfg, params, self.plan_table = _prepare_serving_params(
-            cfg, params, serve_cfg, use_kernel, plan_table
+        cfg, params, self.plan_table, self.plan_db_stats = _prepare_serving_params(
+            cfg, params, serve_cfg, use_kernel, self.device, plan_table
         )
         self.cfg = cfg
         self.params = params
@@ -444,5 +516,10 @@ class Engine:
         return logits[:, -1].to(torch.float32).cpu().numpy()
 
     def stats(self) -> dict:
-        """Scheduler counters: queue depth, per-phase tok/s, TTFT/latency."""
-        return self.scheduler.stats()
+        """Scheduler counters: queue depth, per-phase tok/s, TTFT/latency;
+        with a plan database also its consultation (``"plan_db"``: hits,
+        misses, stale, the key and the directory)."""
+        s = self.scheduler.stats()
+        if self.plan_db_stats is not None:
+            s["plan_db"] = dict(self.plan_db_stats)
+        return s

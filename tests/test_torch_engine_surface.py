@@ -156,7 +156,7 @@ def test_fused_greedy_tokens_identical_to_unfused(weights, mode):
                      plan_table=table)
         runs[fuse] = eng.generate(PROMPTS[:3])
         if mode == "dsp_tuned":
-            assert {s.name() for s in eng.plan_table.values()} == {"a4w4-p10-n32-mr+full-c2"}
+            assert {r.name for r in eng.plan_table.values()} == {"a4w4-p10-n32-mr+full-c2"}
     assert runs["mlp"] == runs["none"]
     assert runs["all"] == runs["none"]
 

@@ -162,7 +162,7 @@ def test_tuned_leaf_follows_the_reference_conditions(mode):
 
 
 def test_unported_modes_still_raise_on_float_leaves():
-    for mode in ("int8", "qat4", "qat8"):
+    for mode in ("qat4", "qat8"):
         with pytest.raises(NotImplementedError, match=mode):
             TL.apply_linear({"w": torch.zeros((D_IN, D_OUT))}, torch.zeros((1, D_IN)),
                             TL.LinearSpec(mode=mode))

@@ -85,7 +85,7 @@ def test_greedy_tokens_identical_to_reference_engine(weights, mode):
         assert (teng.scheduler.requests[rid].finish_reason
                 == jeng.scheduler.requests[rid].finish_reason)
     if mode == "dsp_tuned":
-        assert {p: s.name() for p, s in teng.plan_table.items()} == {
+        assert {p: r.name for p, r in teng.plan_table.items()} == {
             p: r.name for p, r in jeng.plan_table.items()}
 
 
@@ -152,8 +152,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights):
 
 
 def test_unported_knobs_are_rejected_by_name():
-    for name, value in (("governor", True), ("tp", 2), ("plan_db", "db"),
-                        ("deadline_ms", 5.0), ("page_size", 8)):
+    for name, value in (("governor", True), ("tp", 2), ("mixed_budget", 0.1),
+                        ("deadline_ms", 5.0), ("page_size", 8),
+                        ("plan_bits", "auto")):
         with pytest.raises(NotImplementedError, match=name):
             ServeConfig(device="cpu", **{name: value})
     with pytest.raises(NotImplementedError, match="dsp_mixed"):
