@@ -16,7 +16,9 @@ anything in it fails:
    M <= 16 kernels forced at M = 64, and the main path's shapes),
    bit-exact (max abs diff 0), and the M <= 16 kernels at every geometry
    (M 1, 2, 4, 8, 16; N a multiple of 16, of 8 only, of 4 only and odd;
-   K 8192, split over blocks, and 202); then each kernel timed with CUDA
+   K 8192, split over blocks, and 202); the four matmul wrappers at the
+   MoE path's shapes, (K, N) (2048, 1408), (1408, 2048) and the lm_head's
+   (2048, 163840), at M 1, 3, 7, 17, 33; then each kernel timed with CUDA
    events at the main path's decode (M=4) and prefill (M=64) shapes, beside
    its plain version, its bound and a library call, and at M=64 beside the
    M <= 16 kernel; at M=4 also by the replay of a CUDA graph of the same
@@ -36,11 +38,20 @@ anything in it fails:
    kernels' launch counters are zeroed just before and read just after,
    and every kernel must have launched (the M <= 16 kernels in decode, the
    M > 16 ones, ``packed_matmul_prepacked_tiled`` among them, in 64-row
-   prefill chunks); logits must be finite;
-5. whole-path agreement at the smoke config: the kernel engine and the
-   plain-version engine emit identical greedy tokens in int4_packed,
-   dsp_tuned (mr plan) and dsp_packed, with prefill chunks of 8 rows and
-   of 32 (the M > 16 kernels);
+   prefill chunks); logits must be finite; dsp_mixed runs its sensitivity
+   pass on the card (4 widths, 32 calibration tokens, budget 0.05: 8 paths
+   x 4 widths = 32 probes of 64 rows) and serves the allocation;
+   then the MoE path, its counts zeroed just before and read just after:
+   moonshot-v1-16b-a3b at full width (d_model 2048, 64 experts, top-6,
+   d_ff 1408, vocab 163840; 48 layers cut to 4; bf16 seeded weights)
+   served with the same requests in native, int8, int4_packed, dsp_tuned
+   (the tuner's plans) and dsp_packed, each packed kernel launched;
+5. whole-path agreement at the smoke configs (qwen1.5-110b and
+   moonshot-v1-16b-a3b): the kernel engine and the plain-version engine
+   emit identical greedy tokens in int4_packed, dsp_tuned (mr plan, each
+   expert's too), dsp_packed and dsp_mixed (one allocation, from the first
+   kernel engine's sensitivity pass, handed to the other three), with
+   prefill chunks of 8 rows and of 32 (the M > 16 kernels);
 6. the paper's arithmetic on the card: ``scheme_stats`` of the five
    schemes on INT4 (delta 3), INT4 overpacked (delta -2) and the six
    4x5-bit products (Tables I/II), equal to the same calls on the CPU, and
@@ -79,7 +90,9 @@ anything in it fails:
    (a hit, no plan scored, the same plans and tokens) and one with
    ``autotune_plans``, whose plans (each forcing its tuned variants) must
    emit identical greedy tokens in a kernel and a plain-version engine,
-   with prefill chunks of 8 rows and of 32.
+   with prefill chunks of 8 rows and of 32; then dsp_mixed cold (a miss,
+   the sensitivity pass run) and warm (a hit, no probe, the same widths
+   and tokens) on the same database.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -136,11 +149,17 @@ CUDA_CORE_NAME = "flash_attention_f32_cuda_core"
 # phase 3: an mr plan whose even lane the kernels read from wsc (bits_w > p)
 WSC_PLAN = "a4w8-p7-n2-mr+full-c4"
 PACKED_MODES = ("int4_packed", "dsp_tuned", "dsp_packed")
+MOE_MODES = ("native", "int8") + PACKED_MODES  # the MoE phase at moonshot's width
 QUANT_MODES = ("int8",) + PACKED_MODES  # served again fused
 # phase 9: the block sweep's probes (an 8192 x 8192 linear, prefill and decode)
 SWEEP_SHAPE, SWEEP_DECODE = (64, 8192, 8192), (4, 8192, 8192)
 L2_BYTES = 50 * 2**20
 SLICE_N = 16384  # plain versions run in column slices to bound their memory
+# phase 3: moonshot-v1-16b-a3b's expert shapes (K, N) (up/gate, down) and its
+# lm_head, where N = 1408 is not a multiple of the wide kernels' 512 columns,
+# at the per-expert row counts of MoE dispatch
+MOE_SHAPES = [(2048, 1408), (1408, 2048), (2048, 163840)]
+MOE_ROWS = (1, 3, 7, 17, 33)
 
 
 def log(msg: str) -> None:
@@ -352,6 +371,64 @@ def check_kernels(torch, K, ref, checks: list) -> None:
     torch.cuda.synchronize()
 
 
+def check_moe_geometries(torch, K, ref, checks: list) -> None:
+    """The four matmul wrappers bit-exact against their plain versions at
+    the MoE path's shapes (``MOE_SHAPES``) and per-expert row counts
+    (``MOE_ROWS``, each M choosing its kernel): int4_matmul,
+    packed_matmul (``INT4_EXACT``) and packed_matmul_prepacked in the fused
+    form with the main plan, the exact preset and an a8w8 plan (and the
+    int form with the main plan).  Plain versions run in column slices."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    exact = ref.INT4_EXACT
+    plans = [ref.spec_from_name(MAIN_PLAN), exact, ref.spec_from_name("a8w8-p11-n1-full-c4")]
+
+    def cols(t, a, b):
+        return None if t is None else t[..., a:b]
+
+    for k, n in MOE_SHAPES:
+        w4 = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+        w8 = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        for m in MOE_ROWS:
+            where = f"moe M={m} K={k} N={n}"
+            x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            want = by_columns(torch, lambda a, b: K.int4_matmul_plain(x, w4[:, a:b]), n)
+            checks.append((K.int4_variant(m), where, max_diff(torch, K.int4_matmul(x, w4), want)))
+            xu = torch.randint(0, 16, (m, k), generator=gen, device=dev, dtype=torch.int32)
+            want = by_columns(torch, lambda a, b: K.packed_matmul_plain(xu, w8[:, a:b], exact), n)
+            checks.append((K.packed_variant(m, exact), f"{exact.name()} {where}",
+                           max_diff(torch, K.packed_matmul(xu, w8, exact), want)))
+        del w4, w8
+        for i, spec in enumerate(plans):
+            lo = -(1 << (spec.bits_w - 1))
+            w_s = torch.randint(lo, -lo, (k, n), generator=gen, device=dev, dtype=torch.int32)
+            pw = ref.pack_weight_words(w_s, spec)
+            del w_s
+            zp = 1 << (spec.bits_a - 1)
+            for m in MOE_ROWS:
+                where = f"{spec.name()} moe M={m} K={k} N={n}"
+                xf = torch.randn((m, k), generator=gen, device=dev)
+                scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
+                want = by_columns(torch, lambda a, b: K.packed_matmul_prepacked_plain(
+                    xf, pw.words[..., a:b], cols(pw.wsc, a, b), spec, x_scale=scale,
+                    x_zp=zp), n)
+                got = K.packed_matmul_prepacked(xf, pw.words, pw.wsc, spec, x_scale=scale,
+                                                x_zp=zp)
+                variant = K.prepacked_variant(m, spec)
+                checks.append((variant, where + " fused", max_diff(torch, got, want)))
+                if i == 0:
+                    x_u = torch.randint(0, 1 << spec.bits_a, (m, k), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                    want = by_columns(torch, lambda a, b: K.packed_matmul_prepacked_plain(
+                        x_u, pw.words[..., a:b], cols(pw.wsc, a, b), spec), n)
+                    got = K.packed_matmul_prepacked(x_u, pw.words, pw.wsc, spec)
+                    checks.append((variant, where + " int", max_diff(torch, got, want)))
+            del pw
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def library_ms(torch, fn) -> float | None:
     """Time of the yardstick library call, or None where PyTorch refuses
     the shape (the refusal is printed)."""
@@ -497,19 +574,123 @@ def time_kernels(torch, K, ref, checks: list) -> list[dict]:
     return rows
 
 
-# ---- phase 4 / 5: serving -----------------------------------------------------
+# ---- phase 4 / 5 / MoE: serving ----------------------------------------------
+
+
+def tree_leaves(tree):
+    """Every leaf of a parameter tree (dicts and the per-layer lists walked)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def leaf_plans(P, params) -> dict:
+    """Served ``DspTunedLeaf`` plans of a quantized tree: plan name -> leaves
+    (every layer and expert counted)."""
+    counts: dict = {}
+    for leaf in tree_leaves(params):
+        if P.is_dsp_tuned_leaf(leaf):
+            counts[leaf.spec.name()] = counts.get(leaf.spec.name(), 0) + 1
+    return counts
+
+
+def run_engine(torch, K, P, card: str, cfg, params, prompts, key: str, *,
+               inspect=None, table=None, allocation=None, **scfg) -> tuple[dict, list]:
+    """Build one engine (4 slots, max_len 64, prefill chunk 16, no EOS), serve
+    a 2-token warm-up request, then ``prompts`` greedily to 8 tokens each;
+    returns its numbers (build seconds, sensitivity probes run in the build,
+    prefill tok/s, median decode ms/step, launches per kernel in the serving
+    and in the build, MoE host reads per decode step, peak memory) and the
+    tokens.  ``inspect(engine, build_s)`` adds its own entries."""
+    at_build = kernel_counts(K)
+    probes0, reads0 = P.PROBES.count, P.HOST_READS["count"]
+    t0 = time.perf_counter()
+    engine = P.Engine(cfg, params, P.ServeConfig(
+        n_slots=4, max_len=64, prefill_chunk=16, max_new=8, eos_token=-1,  # full budgets
+        device="cuda", **scfg), plan_table=table, mixed_allocation=allocation)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    probes = P.PROBES.count - probes0
+    before = kernel_counts(K)  # the build launches kernels in sweeps and probes
+    extra = inspect(engine, build_s, probes) if inspect is not None else {}
+    warm = engine.generate([prompts[0][:4]], max_new=2)  # warm-up request
+    sch = engine.scheduler
+    tok0, time0 = sch.prefill_tokens, sch.prefill_time_s
+    rids = [engine.submit(p, max_new=8, admit=False) for p in prompts]
+    step_ms, step_reads, step_launches = [], [], []
+    while engine.active.any() or sch.n_queued:
+        r0, l0 = P.HOST_READS["count"], sum(kernel_counts(K).values())
+        t0 = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_reads.append(P.HOST_READS["count"] - r0)
+        step_launches.append(sum(kernel_counts(K).values()) - l0)
+    logits = torch.from_numpy(engine.peek_logits())
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{key}: non-finite logits")
+    tokens = [list(engine.outputs[r]) for r in rids]
+    lengths = [len(t) for t in tokens]
+    if lengths != [8] * len(prompts) or len(next(iter(warm.values()))) != 2:
+        raise RuntimeError(f"{key}: expected {len(prompts)} x 8 tokens, got {lengths}")
+    after = kernel_counts(K)
+    decode = sorted(step_ms[1:])  # the first step also admits (prefill)
+    launches = {k: after[k] - before[k] for k in after}
+    out = dict(
+        build_s=build_s, probes=probes,
+        prefill_tok_s=(sch.prefill_tokens - tok0) / (sch.prefill_time_s - time0),
+        decode_ms_per_step=decode[len(decode) // 2],
+        decode_ms_steps=decode,  # every decode step, sorted: the spread
+        decode_steps=len(decode),
+        launches=launches,
+        build_launches={k: before[k] - at_build[k] for k in before},
+        host_reads_per_decode_step=max(step_reads[1:], default=0),
+        # kernel launches of each decode step after the first (which admits)
+        decode_step_launches=step_launches[1:],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **extra,
+    )
+    log(f"serve {key:18s} on {card}: build {build_s:.1f} s"
+        + (f" ({probes} sensitivity probes)" if probes else "")
+        + f", prefill {out['prefill_tok_s']:.1f} tok/s, decode "
+        f"{out['decode_ms_per_step']:.2f} ms/step (median), launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({out['decode_step_launches']} a "
+        f"decode step), peak {out['peak_gb']:.1f} GB"
+        + (f", MoE host reads {out['host_reads_per_decode_step']} a decode step"
+           if out["host_reads_per_decode_step"] else "")
+        + (f", launched in the build {out['build_launches']}"
+           if any(out["build_launches"].values()) else ""))
+    del engine, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out, tokens
+
+
+def mixed_report(P, allocation, build_s: float, probes: int) -> dict:
+    """The sensitivity pass's seconds and probes, each candidate width's
+    plan (as the card's engine selects it: ``exact_first`` off) and the
+    allocation's summary."""
+    widths = {f"a{a}w{w}": P.tuner.select_plan(a, w, error_budget=0.0).name
+              for a, w in P.DEFAULT_WIDTH_CANDIDATES}
+    return dict(pass_s=build_s, probes=probes, width_plans=widths,
+                summary=allocation.summary())
 
 
 def serve_full_width(torch, K, P, card: str):
     """The main path at full width, one engine per mode built and freed;
     dsp_tuned also with ``autotune_plans`` (the tuner times the kernels at
     every layer shape), whose greedy tokens must equal a plain-version
-    engine's on the same plans; then each packed mode again with
-    ``fuse_projections="all"``, whose greedy tokens must equal the
-    unfused run's.  The fused runs get the
-    float tree fused once here (the engine's own fusion then finds nothing
-    left to join) with the unfused tree freed first, so that dsp_tuned's
-    build keeps the unfused run's peak memory."""
+    engine's on the same plans; dsp_mixed with its sensitivity pass on the
+    card (4 widths, 32 calibration tokens, budget 0.05); then each packed
+    mode again with ``fuse_projections="all"``, whose greedy tokens must
+    equal the unfused run's.  The fused runs get the float tree fused once
+    here (the engine's own fusion then finds nothing left to join) with
+    the unfused tree freed first, so that dsp_tuned's build keeps the
+    unfused run's peak memory."""
     cfg = P.dataclasses.replace(P.get_config("qwen1.5-110b"), n_layers=4)
     params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
@@ -523,19 +704,17 @@ def serve_full_width(torch, K, P, card: str):
     def serve(mode: str, params, fuse: str, key: str | None = None, table=None,
               autotune: bool = False, use_kernel: bool | None = None) -> None:
         key = key or (mode if fuse == "none" else f"{mode}+fuse")
-        at_build = kernel_counts(K)
-        t0 = time.perf_counter()
-        engine = P.Engine(cfg, params, P.ServeConfig(
-            n_slots=4, max_len=64, prefill_chunk=16, max_new=8, quant_mode=mode,
-            fuse_projections=fuse, eos_token=-1,  # no EOS: full budgets
-            autotune_plans=autotune, use_kernel=use_kernel, device="cuda"),
-            plan_table=table)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        # the build launches kernels only where autotune_plans times them
-        before = kernel_counts(K)
-        plans = None
-        if mode == "dsp_tuned":
+
+        def inspect(engine, build_s: float, probes: int) -> dict:
+            if mode == "dsp_mixed":
+                alloc = engine.mixed_allocation
+                rep = mixed_report(P, alloc, build_s, probes)
+                log(f"{key}: sensitivity pass {build_s:.1f} s, {rep['probes']} probes "
+                    f"(PROBES), width plans {rep['width_plans']}, summary "
+                    + json.dumps(alloc.summary(), sort_keys=True))
+                return dict(mixed=rep)
+            if mode != "dsp_tuned":
+                return {}
             tables[key] = dict(engine.plan_table)
             names = {p: r.name for p, r in engine.plan_table.items()}
             served = {p for p, _ in P.iter_packable_weights(params)}  # fused already
@@ -549,45 +728,12 @@ def serve_full_width(torch, K, P, card: str):
             log(f"{key}: plans {sorted(set(plans.values()))} on {len(names)} packable "
                 f"paths, built in {build_s:.1f} s"
                 + (" (given)" if table is not None else " (the tuner's pick)"))
-        warm = engine.generate([prompts[0][:4]], max_new=2)  # warm-up request
-        sch = engine.scheduler
-        tok0, time0 = sch.prefill_tokens, sch.prefill_time_s
-        rids = [engine.submit(p, max_new=8, admit=False) for p in prompts]
-        step_ms = []
-        while engine.active.any() or sch.n_queued:
-            t0 = time.perf_counter()
-            engine.step()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        logits = torch.from_numpy(engine.peek_logits())
-        if not bool(torch.isfinite(logits).all()):
-            raise RuntimeError(f"{key}: non-finite logits")
-        tokens[key] = [list(engine.outputs[r]) for r in rids]
-        lengths = [len(t) for t in tokens[key]]
-        if lengths != [8, 8, 8] or len(next(iter(warm.values()))) != 2:
-            raise RuntimeError(f"{key}: expected 3 x 8 tokens, got {lengths}")
-        after = kernel_counts(K)
-        decode = sorted(step_ms[1:])  # the first step also admits (prefill)
-        results[key] = dict(
-            build_s=build_s,
-            prefill_tok_s=(sch.prefill_tokens - tok0) / (sch.prefill_time_s - time0),
-            decode_ms_per_step=decode[len(decode) // 2],
-            decode_ms_steps=decode,  # every decode step, sorted: the spread
-            launches={k: after[k] - before[k] for k in after},
-            build_launches={k: before[k] - at_build[k] for k in before},
-            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-            plans=plans,
-        )
-        log(f"serve {key:18s} on {card}: build {build_s:.1f} s, prefill "
-            f"{results[key]['prefill_tok_s']:.1f} tok/s, decode "
-            f"{results[key]['decode_ms_per_step']:.2f} ms/step (median), "
-            f"launches {results[key]['launches']}, peak "
-            f"{results[key]['peak_gb']:.1f} GB"
-            + (f", launched in the build (the sweep) {results[key]['build_launches']}"
-               if any(results[key]["build_launches"].values()) else ""))
-        del engine, logits
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+            return dict(plans=plans)
+
+        results[key], tokens[key] = run_engine(
+            torch, K, P, card, cfg, params, prompts, key, inspect=inspect, table=table,
+            quant_mode=mode, fuse_projections=fuse, autotune_plans=autotune,
+            use_kernel=use_kernel)
 
     # the hand table's dsp_tuned engine runs just before the tuner's, so
     # that the two decode times meet the same host state
@@ -602,6 +748,8 @@ def serve_full_width(torch, K, P, card: str):
         raise RuntimeError(f"dsp_tuned: the tuner's engine {tokens['dsp_tuned']} != the "
                            f"hand table's {tokens['dsp_tuned+table']}")
     log("dsp_tuned: greedy tokens of the tuner's plans identical to the hand table's")
+    # per-layer widths from the sensitivity pass, run on the card
+    serve("dsp_mixed", params, "none")
     # the measured ranking at every layer shape, held to the plain version
     # of the same plans (which launches no kernel)
     serve("dsp_tuned", params, "none", key="dsp_tuned+autotune", autotune=True)
@@ -626,6 +774,73 @@ def serve_full_width(torch, K, P, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     return results
+
+
+def serve_moe(torch, K, P, card: str) -> dict:
+    """The MoE family at moonshot-v1-16b-a3b's full width (48 layers cut to
+    4; 64 experts, top-6), bf16 seeded weights, served greedily with phase
+    4's requests in every mode; reports each mode's numbers and the plans
+    its ``DspTunedLeaf`` leaves serve."""
+    cfg = P.dataclasses.replace(P.get_config("moonshot-v1-16b-a3b"), n_layers=4)
+    t0 = time.perf_counter()
+    params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_weights = sum(t.numel() for t in tree_leaves(params))
+    log(f"moe: {cfg.name} at full width, {cfg.n_layers} layers, {n_weights / 1e9:.3f} G "
+        f"weights ({2 * n_weights / 1e9:.2f} GB bf16), made in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 17, 30)]
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in MOE_MODES:
+        def inspect(engine, build_s: float, probes: int) -> dict:
+            served = leaf_plans(P, engine.params)
+            if served:
+                log(f"moe {mode}: served plans {served} (leaves), built in {build_s:.1f} s")
+            return dict(served_plans=served)
+
+        results[mode], _ = run_engine(torch, K, P, card, cfg, params, prompts,
+                                      f"moe {mode}", inspect=inspect, quant_mode=mode)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config=dict(name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                            n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                            d_ff=cfg.d_ff, vocab=cfg.vocab_size, weights=n_weights),
+                modes=results)
+
+
+def agreement(torch, P, cfg, params, mode: str, table=None, widths=None) -> dict:
+    """Kernel engine against plain-version engine at a smoke config, greedy
+    tokens identical with prefill chunks of 4 rows x 2 slots (the M <= 16
+    kernels) and of 16 (the M > 16 ones).  ``dsp_mixed`` runs its
+    sensitivity pass once, in the first kernel engine, and hands that
+    allocation to the other three."""
+    prompts = [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
+    allocation, out = None, {}
+    extra = {} if widths is None else dict(width_candidates=widths)
+    for chunk in (4, 16):
+        toks = []
+        for uk in (True, False):
+            eng = P.Engine(cfg, params, P.ServeConfig(
+                n_slots=2, max_len=32, prefill_chunk=chunk, max_new=6, quant_mode=mode,
+                device="cuda", use_kernel=uk, **extra), plan_table=table,
+                mixed_allocation=allocation)
+            if mode == "dsp_mixed" and allocation is None:
+                allocation = eng.mixed_allocation
+                out["assignments"] = {p: f"a{a}w{w}" for p, (a, w)
+                                      in sorted(allocation.assignments.items())}
+            toks.append(eng.generate(prompts))
+            del eng
+        if toks[0] != toks[1]:
+            raise RuntimeError(f"{cfg.name} {mode} chunk {chunk}: kernel engine {toks[0]} "
+                               f"!= plain engine {toks[1]}")
+        log(f"agreement {cfg.name} {mode} (prefill chunk {chunk}): kernel and plain "
+            "engines emit identical tokens"
+            + (f" (one allocation, {allocation.distinct_widths} widths over "
+               f"{len(allocation.assignments)} paths)" if allocation is not None else ""))
+    return out
 
 # ---- phase 9: the plan search on the card ------------------------------------
 
@@ -713,6 +928,26 @@ def plan_search(torch, K, P, card: str, checks: list) -> dict:
             if autotune:
                 tuned_table = dict(eng.plan_table)
             del eng
+        # dsp_mixed on the same database: the cold build runs the sensitivity
+        # pass (and stores its allocation), the warm one runs no probe
+        for name in ("mixed cold", "mixed warm"):
+            p0 = P.PROBES.count
+            t0 = time.perf_counter()
+            eng = P.Engine(smoke, sparams, P.ServeConfig(
+                n_slots=2, max_len=32, prefill_chunk=4, max_new=6, quant_mode="dsp_mixed",
+                plan_db=db, device="cuda"))
+            build_s = time.perf_counter() - t0
+            stats = eng.stats()["plan_db"]
+            builds[name] = dict(
+                build_s=build_s, probes=P.PROBES.count - p0, hits=stats["hits"],
+                misses=stats["misses"], stale=stats["stale"],
+                assignments={p: f"a{a}w{w}" for p, (a, w)
+                             in sorted(eng.mixed_allocation.assignments.items())},
+                tokens=eng.generate(prompts))
+            log(f"plan db {name}: build {build_s:.2f} s, {builds[name]['probes']} probes, "
+                f"{stats['hits']} hit / {stats['misses']} miss, "
+                f"{eng.mixed_allocation.distinct_widths} widths")
+            del eng
     # the autotuned plans, their kernel variants forced, against the plain
     # version: prefill chunks of 4 rows x 2 slots run decode_block, of 16
     # the prefill block
@@ -737,6 +972,14 @@ def plan_search(torch, K, P, card: str, checks: list) -> dict:
         raise RuntimeError("plan db: the warm build serves other plans or tokens")
     if builds["autotune"]["misses"] != 1:
         raise RuntimeError("plan db: autotune_plans must key another entry")
+    mcold, mwarm = builds["mixed cold"], builds["mixed warm"]
+    if (mcold["misses"], mcold["hits"]) != (1, 0) or mcold["probes"] < 1:
+        raise RuntimeError(f"plan db: the cold dsp_mixed build was not a probed miss: {mcold}")
+    if (mwarm["misses"], mwarm["hits"], mwarm["probes"]) != (0, 1, 0):
+        raise RuntimeError(f"plan db: the warm dsp_mixed build was not an unprobed hit: "
+                           f"{mwarm}")
+    if (mwarm["assignments"], mwarm["tokens"]) != (mcold["assignments"], mcold["tokens"]):
+        raise RuntimeError("plan db: the warm dsp_mixed build serves other widths or tokens")
     return dict(cold_rank_s=cold_s, n_scored=n_scored, n_within=len(ranked),
                 proxy_head=ranked[0].name, autotune_rank_s=autotune_s, ranking=ranking,
                 sweep=sweep, winners_off_rule=off_rule,
@@ -1052,7 +1295,12 @@ def main(argv: list[str] | None = None) -> int:
     import types
 
     from repro_torch.core import correction, packing
-    from repro_torch.core.packed_params import fuse_projection_weights, iter_packable_weights
+    from repro_torch.core.packed_params import (
+        fuse_projection_weights,
+        is_dsp_tuned_leaf,
+        iter_packable_weights,
+        split_expert_stacks,
+    )
     from repro_torch.kernels import addpack_acc as A
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as F
@@ -1060,16 +1308,19 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import packed_matmul as pm
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import _repeat_kv
+    from repro_torch.models.moe import HOST_READS
     from repro_torch.models.registry import get_config
     from repro_torch.serving import Engine, ServeConfig
-    from repro_torch.tuning import autotune, tuner
+    from repro_torch.tuning import DEFAULT_WIDTH_CANDIDATES, PROBES, autotune, tuner
 
     P = types.SimpleNamespace(dataclasses=dataclasses, ref=ref, T=T, Engine=Engine,
                               ServeConfig=ServeConfig, get_config=get_config,
                               iter_packable_weights=iter_packable_weights,
                               fuse_projection_weights=fuse_projection_weights,
+                              is_dsp_tuned_leaf=is_dsp_tuned_leaf,
                               repeat_kv=_repeat_kv, tuner=tuner, autotune=autotune,
-                              tempfile=tempfile)
+                              tempfile=tempfile, PROBES=PROBES, HOST_READS=HOST_READS,
+                              DEFAULT_WIDTH_CANDIDATES=DEFAULT_WIDTH_CANDIDATES)
     M = types.SimpleNamespace(packing=packing, correction=correction, ref=ref)
 
     class K:  # the kernels' wrappers and plain versions
@@ -1106,6 +1357,7 @@ def main(argv: list[str] | None = None) -> int:
     checks: list = []
     t0 = time.perf_counter()
     check_kernels(torch, K, ref, checks)
+    check_moe_geometries(torch, K, ref, checks)
     rows = time_kernels(torch, K, ref, checks)
     bad = [c for c in checks if c[2] != 0]
     for c in bad:
@@ -1128,29 +1380,37 @@ def main(argv: list[str] | None = None) -> int:
     for kernel, mode in need.items():
         if serving_out[mode]["launches"][kernel] < 1 or launches[kernel] < 1:
             raise RuntimeError(f"{kernel} never launched on the main path ({mode})")
+    for kernel in ("packed_matmul_prepacked", "packed_matmul_prepacked_tiled"):
+        if serving_out["dsp_mixed"]["launches"][kernel] < 1:
+            raise RuntimeError(f"{kernel} never launched serving dsp_mixed")
 
-    # phase 5: kernel engine vs plain-version engine at the smoke config;
+    # the MoE path: moonshot-v1-16b-a3b at full width, counts zeroed just
+    # before and read just after
+    zero_counts(K)
+    t0 = time.perf_counter()
+    moe_out = serve_moe(torch, K, P, card)
+    moe_launches = kernel_counts(K)
+    log(f"moe path: {time.perf_counter() - t0:.1f} s, launches {moe_launches}")
+    for kernel, mode in need.items():
+        if moe_out["modes"][mode]["launches"][kernel] < 1:
+            raise RuntimeError(f"{kernel} never launched on the MoE path ({mode})")
+
+    # phase 5: kernel engine vs plain-version engine at the smoke configs;
     # prefill chunks of 4 rows x 2 slots run the M <= 16 kernels, of 16 the
-    # M > 16 ones
-    smoke = dataclasses.replace(get_config("qwen1.5-110b", smoke=True), dtype="float32")
-    sparams = T.init_params(smoke, seed=0, dtype=torch.float32, device="cuda")
+    # M > 16 ones; dsp_mixed on one allocation handed to all four engines
     plan = ref.spec_from_name(MAIN_PLAN)
-    prompts = [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
-    for mode in PACKED_MODES:
-        table = ({p: plan for p, _ in iter_packable_weights(sparams)}
-                 if mode == "dsp_tuned" else None)
-        for chunk in (4, 16):
-            toks = [Engine(smoke, sparams, ServeConfig(
-                        n_slots=2, max_len=32, prefill_chunk=chunk, max_new=6,
-                        quant_mode=mode, device="cuda", use_kernel=uk),
-                        plan_table=table).generate(prompts)
-                    for uk in (True, False)]
-            if toks[0] != toks[1]:
-                raise RuntimeError(f"{mode} chunk {chunk}: kernel engine {toks[0]} != "
-                                   f"plain engine {toks[1]}")
-            log(f"agreement {mode} (prefill chunk {chunk}): kernel and plain engines "
-                "emit identical tokens")
-    del sparams
+    agree = {}
+    for arch in ("qwen1.5-110b", "moonshot-v1-16b-a3b"):
+        smoke = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        sparams = T.init_params(smoke, seed=0, dtype=torch.float32, device="cuda")
+        for mode in PACKED_MODES + ("dsp_mixed",):
+            # the main plan by hand on every path served, each expert's too
+            table = ({p: plan for p, _ in iter_packable_weights(split_expert_stacks(sparams))}
+                     if mode == "dsp_tuned" else None)
+            agree[f"{arch} {mode}"] = agreement(torch, P, smoke, sparams, mode, table)
+        del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 6: the paper's arithmetic (Tables I/II) on the card
     t0 = time.perf_counter()
@@ -1219,7 +1479,9 @@ def main(argv: list[str] | None = None) -> int:
         r = head[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[name] + moe_launches[name],
+            "launches_by_path": {"qwen1.5-110b": launches[name],
+                                 "moonshot-v1-16b-a3b": moe_launches[name]},
             "max_abs_err": max(c[2] for c in checks if c[0] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1260,7 +1522,8 @@ def main(argv: list[str] | None = None) -> int:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps({
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-            "kernels": kernels, "timings": rows, "serving": serving_out,
+            "kernels": kernels, "timings": rows, "serving": serving_out, "moe": moe_out,
+            "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
             "attention_checks": attn_checks,
             "checks": len(checks), "seconds": time.perf_counter() - t_start,

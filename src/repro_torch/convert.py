@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes the reference's float parameter tree, handed
 over as a nested dict of numpy arrays, and returns the port's tree: the
 stacked ``groups`` axis becomes a per-layer list, every other key stays
-where it was.  ``spec_from_dict`` (the plan database's
+where it was (an MoE layer's ``(L, E, d, f)`` expert stacks become
+per-layer ``(E, d, f)`` stacks, its router per-layer ``(d, E)``).  ``spec_from_dict`` (the plan database's
 ``tuning.plans.spec_from_json``) rebuilds a :class:`PackedDotSpec` from
 ``dataclasses.asdict`` of the reference's spec (its constructor
 re-validates), so plan tables cross over without importing the reference.

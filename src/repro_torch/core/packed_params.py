@@ -4,8 +4,11 @@ Counterpart of the reference's ``repro.core.packed_params`` for the modes
 of the port: ``int4_packed`` stores every matmul weight as int4 nibbles,
 two per uint8 byte, plus a per-output-channel f32 scale; ``dsp_tuned``
 quantizes each weight once onto its plan's signed grid and keeps it in a
-:class:`DspTunedLeaf`; ``int8``, ``dsp_packed`` and ``native`` keep float
-weights (``int8`` and ``dsp_packed`` quantize at the point of use).
+:class:`DspTunedLeaf`, and ``dsp_mixed`` does the same with a per-path
+width map (``tuning.mixed``); ``int8``, ``dsp_packed``, ``native`` and
+``none`` keep float weights (``int8`` and ``dsp_packed`` quantize at the
+point of use).  Every mode but ``native``/``none`` first splits MoE expert
+stacks into per-expert leaves (:func:`split_expert_stacks`).
 
 Parameters are nested dicts of tensors; a list (the per-layer ``groups``)
 adds no component to a weight's path, so every layer of the stack has the
@@ -38,6 +41,7 @@ __all__ = [
     "is_packed_leaf",
     "is_dsp_tuned_leaf",
     "iter_packable_weights",
+    "split_expert_stacks",
     "pack_signed_nibbles",
     "unpack_signed_nibbles",
     "DspTunedLeaf",
@@ -47,7 +51,10 @@ __all__ = [
 
 MIN_DIM = 32  # tiny matrices stay exact
 
-SERVING_MODES = ("native", "int8", "int4_packed", "dsp_packed", "dsp_tuned")
+# ``none`` is served exactly as ``native``; ``dsp_mixed`` is ``dsp_tuned``
+# with a sensitivity-allocated per-path width map (``tuning.mixed``)
+SERVING_MODES = ("native", "none", "int8", "int4_packed", "dsp_packed",
+                 "dsp_tuned", "dsp_mixed")
 
 
 def is_packed_leaf(p) -> bool:
@@ -245,6 +252,32 @@ def iter_packable_weights(
             yield from iter_packable_weights(v, min_dim, p)
 
 
+def split_expert_stacks(params):
+    """Split stacked MoE expert weights into per-expert leaves.
+
+    ``models.moe.init_moe`` stores each expert projection as one
+    ``(E, d_in, d_out)`` stack; ``{"e0": (d_in, d_out), "e1": ...}`` gives
+    every expert its own path, so its own plan, sensitivity row and
+    prepacked leaf.  A stack is recognized structurally, as the reference
+    does: an ``up``/``gate``/``down`` tensor of ``dim >= 3`` in a dict that
+    also holds a ``router``.  Idempotent: a split tree passes unchanged.
+    The layer list of ``groups`` is walked element by element.
+    """
+    if isinstance(params, list):
+        return [split_expert_stacks(v) for v in params]
+    if not isinstance(params, dict):
+        return params
+    is_moe = "router" in params
+    out = {}
+    for k, v in params.items():
+        if (is_moe and k in ("up", "gate", "down") and isinstance(v, torch.Tensor)
+                and v.dim() >= 3):
+            out[k] = {f"e{i}": v[..., i, :, :] for i in range(v.shape[-3])}
+        else:
+            out[k] = split_expert_stacks(v)
+    return out
+
+
 def _pack_matrix(w: torch.Tensor, keep_w_f32: bool) -> dict:
     """(d_in, d_out) float -> int4 nibbles + per-channel scale (+ the f32
     grid for the CPU shortcut)."""
@@ -301,7 +334,8 @@ def _convert_tree(params, targets: dict, convert):
 
 def quantize_for_serving(params, mode: str = "int4_packed",
                          min_dim: int = MIN_DIM, plans=None,
-                         prepack: bool = True, use_kernel: bool = False):
+                         prepack: bool = True, use_kernel: bool = False,
+                         only_planned: bool = False):
     """Engine-build weight conversion.
 
     ``int4_packed`` packs every large matmul weight to nibbles once.
@@ -309,13 +343,22 @@ def quantize_for_serving(params, mode: str = "int4_packed",
     ``{path: PlanReport or PackedDotSpec}`` table, as
     ``tuning.plan_linear_layers`` builds it; a path missing from it falls
     back to :data:`INT4_EXACT`) and stores :class:`DspTunedLeaf` leaves.
-    ``int8``, ``dsp_packed`` and ``native`` return the float tree (the
-    first two quantize at the point of use).  ``use_kernel``
-    says where the leaves will be served: the CPU's f32 shortcut operands
-    are built only when it is false.
+    ``dsp_mixed`` is the same arithmetic with entries of different
+    ``(a_bits, w_bits)`` (``tuning.mixed``'s allocation): each leaf
+    quantizes onto its own plan's grid.  ``only_planned=True`` converts
+    only the paths named in ``plans`` and leaves every other weight float:
+    the single-path probe of the sensitivity pass.  ``int8``,
+    ``dsp_packed``, ``native`` and ``none`` return the float tree (the
+    first two quantize at the point of use).  Every mode but ``native`` and
+    ``none`` splits MoE expert stacks first.  ``use_kernel`` says where
+    the leaves will be served: the CPU's f32 shortcut operands are built
+    only when it is false.
     """
     if mode not in SERVING_MODES:
         raise ValueError(f"serving mode {mode!r} not in {SERVING_MODES}")
+    if mode in ("native", "none"):
+        return params
+    params = split_expert_stacks(params)
     keep_w_f32 = prepack and not use_kernel
     paths = {p for p, _ in iter_packable_weights(params, min_dim)}
     if mode == "int4_packed":
@@ -323,9 +366,10 @@ def quantize_for_serving(params, mode: str = "int4_packed",
             params, dict.fromkeys(paths),
             lambda w, _: _pack_matrix(w, keep_w_f32),
         )
-    if mode == "dsp_tuned":
+    if mode in ("dsp_tuned", "dsp_mixed"):
         plans = plans or {}
-        targets = {p: _leaf_plan(plans.get(p)) for p in paths}
+        targets = {p: _leaf_plan(plans.get(p)) for p in paths
+                   if not only_planned or plans.get(p) is not None}
         return _convert_tree(
             params, targets,
             lambda w, spec: _tune_matrix(w, spec, prepack, keep_w_f32),

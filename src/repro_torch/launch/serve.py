@@ -8,9 +8,12 @@ Runs on the card by default (``--device cuda``, the CUDA kernels);
 the tuner picks each layer's plan for ``--plan-bits`` within
 ``--error-budget`` (MAE per extraction); ``--autotune-plans`` ranks the
 plans by timing the CUDA kernels' variants on the card (the plain version
-on the CPU) and prints each plan's variant per phase; ``--plan-db DIR``
-keeps the tuned tables in a plan database, so that a restarted engine
-builds without searching.  ``--fuse mlp`` joins up|gate at engine build,
+on the CPU) and prints each plan's variant per phase.  ``--quant
+dsp_mixed`` (or ``--plan-bits auto``) measures each layer's sensitivity
+on ``--calib-tokens`` seeded calibration tokens and allocates per-layer
+widths within ``--mixed-budget``, and prints the allocation's summary.
+``--plan-db DIR`` keeps the tuned tables and mixed allocations in a plan
+database, so that a restarted engine builds without searching.  ``--fuse mlp`` joins up|gate at engine build,
 ``--fuse all`` also q|k|v (quantized modes; each output column stays
 bit-identical).
 """
@@ -18,6 +21,7 @@ bit-identical).
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -39,8 +43,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--stream", action="store_true",
                     help="print (rid, token) pairs as they are emitted")
     ap.add_argument("--quant", default="native",
-                    choices=["native", "int8", "int4_packed", "dsp_packed",
-                             "dsp_tuned"])
+                    choices=["native", "none", "int8", "int4_packed", "dsp_packed",
+                             "dsp_tuned", "dsp_mixed"])
     ap.add_argument("--error-budget", type=float, default=0.5,
                     help="dsp_tuned: max MAE per extraction a plan may incur")
 
@@ -60,15 +64,23 @@ def main(argv: list[str] | None = None) -> None:
                     metavar="A,W|auto",
                     help="dsp_tuned: operand widths to plan for, e.g. 8,8 "
                          "(8-bit widths serve multi-DSP column-packed "
-                         "plans); 'auto' (per-layer widths, dsp_mixed) is "
-                         "not ported yet")
+                         "plans); 'auto' allocates widths per layer by "
+                         "measured sensitivity (= --quant dsp_mixed)")
+    ap.add_argument("--mixed-budget", type=float, default=0.05,
+                    help="dsp_mixed: model-level error budget (total added "
+                         "logit-KL on the calibration forward) the greedy "
+                         "per-layer width allocator may spend; 0 serves the "
+                         "uniform widest-candidate plan")
+    ap.add_argument("--calib-tokens", type=int, default=32,
+                    help="dsp_mixed: calibration tokens per sequence for "
+                         "the sensitivity pass (seeded from --seed)")
     ap.add_argument("--autotune-plans", action="store_true",
                     help="dsp_tuned: rank plans by timing the kernel "
                          "variants per layer shape and serving phase")
     ap.add_argument("--plan-db", default=None, metavar="DIR",
                     help="persisted plan database directory: engine build "
-                         "consults it before the dsp_tuned plan search and "
-                         "stores a cold search back")
+                         "consults it before the dsp_tuned/dsp_mixed plan "
+                         "searches and stores a cold search back")
     ap.add_argument("--no-prepack", dest="prepack", action="store_false",
                     help="dsp_tuned: pack the weight words on every call")
     ap.add_argument("--fuse", dest="fuse_projections", default="none",
@@ -89,13 +101,22 @@ def main(argv: list[str] | None = None) -> None:
         n_slots=args.slots, max_len=args.max_len,
         prefill_chunk=args.prefill_chunk, quant_mode=args.quant,
         prepack=args.prepack, fuse_projections=args.fuse_projections,
-        plan_bits=args.plan_bits, error_budget=args.error_budget,
+        plan_bits="auto" if args.quant == "dsp_mixed" else args.plan_bits,
+        error_budget=args.error_budget, mixed_budget=args.mixed_budget,
+        calib_tokens=args.calib_tokens,
         autotune_plans=args.autotune_plans, plan_db=args.plan_db,
         temperature=args.temperature, top_k=args.top_k,
         top_p=args.top_p, seed=args.seed, device=args.device,
     )
     engine = Engine(cfg, params, serve_cfg)
-    if engine.plan_table:
+    if engine.mixed_allocation is not None:
+        alloc = engine.mixed_allocation
+        print(f"[serve] mixed-precision allocation (budget {alloc.budget:.4g}, "
+              f"predicted error {alloc.predicted_error:.4g}, cost "
+              f"{alloc.cost_vs_uniform_base:.2f}x uniform "
+              f"a{alloc.base_bits[0]}w{alloc.base_bits[1]}): "
+              + json.dumps(alloc.summary(), sort_keys=True))
+    elif engine.plan_table:
         plans = {r.name for r in engine.plan_table.values()}
         print(f"[serve] tuned packing plans (budget {args.error_budget}): "
               + ", ".join(sorted(plans)))

@@ -1,10 +1,11 @@
-"""The dense decoder LM: parameters, decode cache and forward pass.
+"""The decoder LM: parameters, decode cache and forward pass.
 
 Counterpart of the reference's ``repro.models.transformer`` for the
-``dense`` family.  The reference stacks its layers along a leading
-``groups`` axis and scans over it; here ``params["groups"]`` and the cache
-are per-layer lists and the forward is a Python loop over layers.  Other
-families raise, naming the roadmap queue that ports them.
+``dense`` and ``moe`` families (a ``moe`` layer is attention and the
+top-k MoE FFN of ``models.moe``).  The reference stacks its layers along
+a leading ``groups`` axis and scans over it; here ``params["groups"]`` and
+the cache are per-layer lists and the forward is a Python loop over
+layers.  Other families raise, naming the roadmap queue that ports them.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .layers import (
     mlp,
     rmsnorm,
 )
+from .moe import init_moe, moe_ffn
 
 __all__ = ["init_params", "init_cache", "forward", "compute_dtype"]
 
@@ -36,11 +38,15 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "port serves the dense family (ROADMAP queue 8 ports the others)"
+            "port serves the dense and moe families (ROADMAP queue 8 ports "
+            "the others)"
         )
 
 
@@ -48,18 +54,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: torch.dtype = torch.floa
                 device: str | torch.device = "cuda") -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     with the reference's scales: N(0, 1/d_in) projections, N(0, 0.02**2)
-    embeddings, unit norms, zero biases."""
-    _require_dense(cfg)
+    embeddings, unit norms, zero biases; a ``moe`` layer's router and
+    expert stacks (``models.moe.init_moe``) in place of the MLP."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
-    make_mlp = init_gelu_mlp if cfg.mlp_variant == "gelu" else init_mlp
+    if cfg.family == "moe":
+        ffn_name, make_ffn = "moe", init_moe
+    else:
+        ffn_name = "mlp"
+        make_ffn = init_gelu_mlp if cfg.mlp_variant == "gelu" else init_mlp
     groups = [
         {
             "ln1": init_rmsnorm(d, dtype, dev),
             "attn": init_attention(gen, cfg, dtype, dev),
             "ln2": init_rmsnorm(d, dtype, dev),
-            "mlp": make_mlp(gen, cfg, dtype, dev),
+            ffn_name: make_ffn(gen, cfg, dtype, dev),
         }
         for _ in range(cfg.n_layers)
     ]
@@ -78,7 +89,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None,
                device: str | torch.device = "cuda") -> list[Params]:
     """Per-layer dense KV cache; ``dtype=None`` takes the compute dtype."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
     return [{"attn": init_kv_cache(cfg, batch, max_len, dtype, dev)}
@@ -93,31 +104,42 @@ def forward(
     cache: list[Params] | None = None,
     logits_dtype: torch.dtype = torch.float32,
     return_hidden: bool = False,
+    valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list[Params] | None, torch.Tensor]:
-    """Token ids -> logits.  Returns ``(logits, new_cache, aux_loss)``; the
-    dense family has no auxiliary loss (a zero, as the reference's).
+    """Token ids -> logits.  Returns ``(logits, new_cache, aux_loss)``: the
+    MoE layers' load-balance losses summed (a zero for the dense family, as
+    the reference's).
 
     Decode: ``tokens`` is (B, 1) with ``positions`` (B, 1) and the cache.
     ``return_hidden`` returns the post-final-norm hidden states instead of
     logits (serving prefill projects only the last prompt position).
+    ``valid`` (B, S) bool is the serving engine's per-row mask: MoE layers
+    then dispatch dropless and route masked tokens to no expert
+    (``models.moe``); ``None`` keeps the capacity path.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"]["w"][tokens].to(compute_dtype(cfg))
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     new_cache = None if cache is None else []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, gp in enumerate(params["groups"]):
         h, new_kv = attention(
             gp["attn"], rmsnorm(gp["ln1"], x, cfg.norm_eps), cfg, positions,
             cache=None if cache is None else cache[i]["attn"],
         )
         x = x + h
-        x = x + mlp(gp["mlp"], rmsnorm(gp["ln2"], x, cfg.norm_eps), cfg.quant)
+        if "moe" in gp:
+            y, layer_aux = moe_ffn(gp["moe"], rmsnorm(gp["ln2"], x, cfg.norm_eps), cfg,
+                                   cfg.quant, valid=valid)
+            x = x + y
+            aux = aux + layer_aux
+        else:
+            x = x + mlp(gp["mlp"], rmsnorm(gp["ln2"], x, cfg.norm_eps), cfg.quant)
         if new_cache is not None:
             new_cache.append({"attn": new_kv})
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, new_cache, aux
     if cfg.tie_embeddings:

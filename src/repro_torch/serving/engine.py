@@ -14,22 +14,31 @@ queued requests into free slots and finished sequences free them.
 * **sampling** — greedy or temperature/top-k/top-p per slot
   (``serving.sampling``).
 
-``quant_mode`` selects the weight path (``native``, ``int8``,
-``int4_packed``, ``dsp_packed``, ``dsp_tuned``), converted once at build
+``quant_mode`` selects the weight path (``native`` or its alias
+``none``, ``int8``, ``int4_packed``, ``dsp_packed``, ``dsp_tuned``,
+``dsp_mixed``), converted once at build
 (``core.packed_params.quantize_for_serving``); ``fuse_projections`` first
 joins q|k|v and up|gate in the quantized modes
 (``core.packed_params.fuse_projection_weights``).  Under ``dsp_tuned`` the
 tuner (``tuning.plan_linear_layers``) picks per layer the fastest plan of
 ``plan_bits`` whose MAE per extraction fits ``error_budget``, ranking
-proven-exact plans first off the kernels, as the reference does; with
-``plan_db`` the build consults the persisted plan database first
-(``tuning.plandb``) and stores a cold search's table back.
-:attr:`Engine.plan_table` maps each packable path of the served (fused)
-tree to its ``tuning.PlanReport``.  A ``plan_table={path: PackedDotSpec}``
-given to the constructor overrides the search (a path absent from it
-serves :data:`INT4_EXACT`).  Termination goes through one code path
-(``_finish_slot``): EOS, per-request ``max_new`` and the cache capacity;
-:meth:`Engine.cancel` aborts a request from outside.
+proven-exact plans first off the kernels, as the reference does.  Under
+``dsp_mixed`` (or ``plan_bits="auto"``) the sensitivity pass and the
+greedy width allocator of ``tuning.mixed`` choose each path's
+``(a_bits, w_bits)`` within ``mixed_budget`` and serve it through the
+``dsp_tuned`` arithmetic; :attr:`Engine.mixed_allocation` holds the
+verdict, and a ``mixed_allocation`` given to the constructor is served as
+it is.  With ``plan_db`` the build consults the persisted plan database
+first (``tuning.plandb``, ``"tuned"`` and ``"mixed"`` entries) and stores
+a cold search back.  :attr:`Engine.plan_table` maps each packable path of
+the served (fused) tree to its ``tuning.PlanReport``.  A
+``plan_table={path: PackedDotSpec}`` given to the constructor overrides
+the ``dsp_tuned`` search (a path absent from it serves
+:data:`INT4_EXACT`).  MoE layers dispatch dropless in prefill and decode
+(``valid``: the prompt rows of the chunk, the active slots).  Termination
+goes through one code path (``_finish_slot``): EOS, per-request
+``max_new`` and the cache capacity; :meth:`Engine.cancel` aborts a request
+from outside.
 """
 
 from __future__ import annotations
@@ -46,13 +55,20 @@ from ..core.packed_params import (
     fuse_projection_weights,
     iter_packable_weights,
     quantize_for_serving,
+    split_expert_stacks,
 )
 from ..device import resolve_device
 from ..kernels.ref import INT4_EXACT, PackedDotSpec
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..tuning import PlanDB, PlanReport, plan_key, plan_linear_layers
-from ..tuning.plandb import report_from_json, report_to_json
+from ..tuning.mixed import DEFAULT_WIDTH_CANDIDATES, MixedAllocation, mixed_precision_plan
+from ..tuning.plandb import (
+    allocation_from_json,
+    allocation_to_json,
+    report_from_json,
+    report_to_json,
+)
 from ..tuning.tuner import plan_report
 from .sampling import SamplingParams, row_seed, sample_tokens
 from .scheduler import Scheduler
@@ -60,21 +76,13 @@ from .scheduler import Scheduler
 __all__ = ["ServeConfig", "Engine"]
 
 # reference knobs of later slices: rejected by name while unported
-_NEXT_SLICE = "ROADMAP queue 6 (tuning/mixed.py, the next slice)"
 _LATER = {
     "governor": "ROADMAP queue 9 (load policy)",
     "deadline_ms": "ROADMAP queue 9 (load policy)",
     "page_size": "ROADMAP queue 9 (paged continuous serving)",
     "n_pages": "ROADMAP queue 9 (paged continuous serving)",
     "watermark_pages": "ROADMAP queue 9 (paged continuous serving)",
-    "mixed_budget": _NEXT_SLICE,
-    "width_candidates": _NEXT_SLICE,
-    "calib_tokens": _NEXT_SLICE,
     "tp": "ROADMAP queue 10 (tensor parallelism)",
-}
-_LATER_MODES = {
-    "dsp_mixed": _NEXT_SLICE,
-    "none": "use 'native'",
 }
 
 
@@ -85,12 +93,14 @@ class ServeConfig:
     ``device`` defaults to ``"cuda"`` and ``use_kernel`` (``None``) to
     "the CUDA kernels on a CUDA device".  ``plan_bits``, ``error_budget``
     and ``autotune_plans`` steer the ``dsp_tuned`` plan search (the
-    wall-clock sweep times the CUDA kernels' variants on the card),
-    ``plan_db`` names a plan-database directory.  The reference's governor,
-    tensor parallelism, deadlines, paged-cache settings and ``dsp_mixed``
-    knobs (``plan_bits="auto"``, ``mixed_budget``, ``width_candidates``,
-    ``calib_tokens``) are fields so that a reference configuration reads
-    the same; setting one raises, naming the roadmap queue that ports it.
+    wall-clock sweep times the CUDA kernels' variants on the card);
+    ``plan_bits="auto"`` promotes ``dsp_tuned`` to ``dsp_mixed``, whose
+    sensitivity pass reads ``width_candidates`` (None: the four default
+    pairs), ``calib_tokens`` and ``seed`` and whose allocator spends
+    ``mixed_budget``; ``plan_db`` names a plan-database directory.  The
+    reference's governor, tensor parallelism, deadlines and paged-cache
+    settings are fields so that a reference configuration reads the same;
+    setting one raises, naming the roadmap queue that ports it.
     """
 
     n_slots: int = 8
@@ -109,7 +119,9 @@ class ServeConfig:
     plan_bits: tuple[int, int] | str = (4, 4)
     error_budget: float = 0.5
     autotune_plans: bool = False
-    # dsp_mixed (the next slice)
+    # dsp_mixed: the allocator's model-level budget (added mean logit-KL),
+    # the candidate widths (None: tuning.mixed.DEFAULT_WIDTH_CANDIDATES) and
+    # calibration tokens per sequence of the sensitivity pass
     mixed_budget: float = 0.05
     width_candidates: tuple[tuple[int, int], ...] | None = None
     calib_tokens: int = 32
@@ -134,23 +146,35 @@ class ServeConfig:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is not ported yet: {queue}"
                 )
-        if self.plan_bits == "auto":
-            raise NotImplementedError(
-                f'ServeConfig.plan_bits="auto" is not ported yet: {_NEXT_SLICE}'
+        if self.quant_mode not in SERVING_MODES:
+            raise ValueError(
+                f"quant_mode {self.quant_mode!r} not in {SERVING_MODES}"
             )
-        if isinstance(self.plan_bits, str):
+        if self.plan_bits == "auto":
+            # "auto" means per-layer width allocation — that is dsp_mixed
+            if self.quant_mode == "dsp_tuned":
+                object.__setattr__(self, "quant_mode", "dsp_mixed")
+            elif self.quant_mode != "dsp_mixed":
+                raise ValueError(
+                    'plan_bits="auto" needs quant_mode "dsp_tuned" or '
+                    f'"dsp_mixed", got {self.quant_mode!r}'
+                )
+        elif isinstance(self.plan_bits, str):
             raise ValueError(
                 f"plan_bits {self.plan_bits!r} must be a (a_bits, w_bits) "
                 'pair or "auto"'
             )
-        if self.quant_mode in _LATER_MODES:
-            raise NotImplementedError(
-                f"quant_mode {self.quant_mode!r} is not ported yet: "
-                f"{_LATER_MODES[self.quant_mode]}"
-            )
-        if self.quant_mode not in SERVING_MODES:
+        if self.mixed_budget < 0:
             raise ValueError(
-                f"quant_mode {self.quant_mode!r} not in {SERVING_MODES}"
+                f"mixed_budget must be >= 0, got {self.mixed_budget}"
+            )
+        if self.quant_mode == "dsp_mixed" and self.autotune_plans:
+            # the width allocator selects plans by cost proxy only; a
+            # silent no-op here would let the flag lie about what ran
+            raise ValueError(
+                "autotune_plans is not supported with dsp_mixed: per-layer "
+                "width allocation ranks plans by the cost proxy (use "
+                "dsp_tuned for wall-clock block sweeps)"
             )
         if self.fuse_projections not in (True, False, "none", "mlp", "all"):
             raise ValueError(
@@ -166,15 +190,17 @@ def _tuned_plans(cfg: ModelConfig, params, scfg: ServeConfig, use_kernel: bool,
     """The ``dsp_tuned`` plan table over every packable path of the served
     tree, and the plan database's counters (None without one).  A given
     ``plan_table`` is served as given ({path: PackedDotSpec or PlanReport},
-    ``INT4_EXACT`` where a path is absent) and bypasses the database;
-    otherwise the database is consulted, then the tuner searches and the
-    table is stored back."""
+    ``INT4_EXACT`` where a path is absent; MoE experts by their per-expert
+    paths) and bypasses the database; otherwise the database is consulted,
+    then the tuner searches and the table is stored back (keyed, as the
+    reference's, by the tree before the expert split: a per-expert path
+    then serves ``INT4_EXACT``, as it does in the reference)."""
     if plan_table is not None:
         def report(plan):
             return plan_report(plan) if isinstance(plan, PackedDotSpec) else plan
 
         return {p: report(plan_table.get(p, INT4_EXACT))
-                for p, _ in iter_packable_weights(params)}, None
+                for p, _ in iter_packable_weights(split_expert_stacks(params))}, None
     db = key = None
     if scfg.plan_db:
         db = PlanDB(scfg.plan_db)
@@ -202,21 +228,62 @@ def _db_stats(db: PlanDB, key: str) -> dict:
             "misses": db.n_misses, "stale": db.n_stale}
 
 
+def _mixed_allocation(cfg: ModelConfig, params, scfg: ServeConfig, use_kernel: bool,
+                      allocation: MixedAllocation | None):
+    """The ``dsp_mixed`` allocation over the served tree, and the plan
+    database's counters (None without one).  A given ``allocation`` is
+    served as given and bypasses the database in both directions;
+    otherwise the database is consulted, then the sensitivity pass and the
+    allocator run and the allocation is stored back."""
+    if allocation is not None:
+        return allocation, None
+    db = key = None
+    if scfg.plan_db:
+        db = PlanDB(scfg.plan_db)
+        key = plan_key(cfg, scfg, params)
+        entry = db.get(key)
+        if entry is not None and entry.get("kind") == "mixed":
+            return allocation_from_json(entry["allocation"]), _db_stats(db, key)
+    # sensitivity pass + greedy width allocation on calibration tokens:
+    # per-layer (a_bits, w_bits) under the model-level mixed_budget, every
+    # width's plan provably exact
+    allocation = mixed_precision_plan(
+        params, cfg, mixed_budget=scfg.mixed_budget,
+        widths=scfg.width_candidates or DEFAULT_WIDTH_CANDIDATES,
+        n_calib_tokens=scfg.calib_tokens, seed=scfg.seed,
+        exact_first=not use_kernel,
+    )
+    if db is not None:
+        db.put(key, {"kind": "mixed", "allocation": allocation_to_json(allocation)})
+    return allocation, None if db is None else _db_stats(db, key)
+
+
 def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
-                            use_kernel: bool, device: torch.device, plan_table):
+                            use_kernel: bool, device: torch.device, plan_table,
+                            mixed_allocation=None):
     """Switch the arithmetic mode, fuse same-input projections if asked, run
-    the ``dsp_tuned`` plan search and quantize the weights onto the mode.
-    Returns ``(cfg, params, plan_table, plan_db_stats)``."""
+    the ``dsp_tuned`` plan search or the ``dsp_mixed`` allocation and
+    quantize the weights onto the mode.  ``dsp_mixed`` leaves run the
+    ``dsp_tuned`` arithmetic, each with its own plan.  Returns ``(cfg,
+    params, plan_table, mixed_allocation, plan_db_stats)``."""
     if plan_table is not None and scfg.quant_mode != "dsp_tuned":
         raise ValueError(
             f"plan_table was given but quant_mode is {scfg.quant_mode!r}; "
             "it is only served under 'dsp_tuned'"
         )
-    if scfg.quant_mode == "native":
-        return cfg, params, {}, None
+    if mixed_allocation is not None and scfg.quant_mode != "dsp_mixed":
+        # dropping a caller-measured allocation would silently serve
+        # different plans than the caller benchmarked
+        raise ValueError(
+            "mixed_allocation was given but quant_mode is "
+            f"{scfg.quant_mode!r}; it is only served under \"dsp_mixed\""
+        )
+    if scfg.quant_mode in ("native", "none"):
+        return cfg, params, {}, None, None
+    linear_mode = "dsp_tuned" if scfg.quant_mode == "dsp_mixed" else scfg.quant_mode
     cfg = dataclasses.replace(
         cfg, quant=dataclasses.replace(
-            cfg.quant, mode=scfg.quant_mode, use_kernel=use_kernel
+            cfg.quant, mode=linear_mode, use_kernel=use_kernel
         ),
     )
     fuse = scfg.fuse_projections
@@ -227,11 +294,15 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
     if scfg.quant_mode == "dsp_tuned":
         table, db_stats = _tuned_plans(cfg, params, scfg, use_kernel, device,
                                        plan_table)
+    elif scfg.quant_mode == "dsp_mixed":
+        mixed_allocation, db_stats = _mixed_allocation(cfg, params, scfg, use_kernel,
+                                                       mixed_allocation)
+        table = mixed_allocation.plans
     params = quantize_for_serving(
         params, scfg.quant_mode, plans=table, prepack=scfg.prepack,
         use_kernel=use_kernel,
     )
-    return cfg, params, table, db_stats
+    return cfg, params, table, mixed_allocation, db_stats
 
 
 class Engine:
@@ -244,10 +315,14 @@ class Engine:
     :attr:`outputs` or :meth:`drain_stream`, counters via :meth:`stats`;
     :meth:`generate` wraps the loop for batch callers.
     ``params`` must already lie on ``serve_cfg.device``.
+    ``mixed_allocation`` (a ``tuning.MixedAllocation``) skips the
+    ``dsp_mixed`` sensitivity pass and serves the given per-path plans; its
+    paths must match this engine's tree (same fusion settings).
     """
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 plan_table: dict[str, PackedDotSpec | PlanReport] | None = None):
+                 plan_table: dict[str, PackedDotSpec | PlanReport] | None = None,
+                 mixed_allocation: MixedAllocation | None = None):
         self.device = resolve_device(serve_cfg.device)
         use_kernel = (self.device.type == "cuda" if serve_cfg.use_kernel is None
                       else serve_cfg.use_kernel)
@@ -259,8 +334,10 @@ class Engine:
             raise ValueError(f"params lie on {embed.device}, the engine serves "
                              f"on {self.device}")
         self.use_kernel = use_kernel
-        cfg, params, self.plan_table, self.plan_db_stats = _prepare_serving_params(
-            cfg, params, serve_cfg, use_kernel, self.device, plan_table
+        (cfg, params, self.plan_table, self.mixed_allocation,
+         self.plan_db_stats) = _prepare_serving_params(
+            cfg, params, serve_cfg, use_kernel, self.device, plan_table,
+            mixed_allocation,
         )
         self.cfg = cfg
         self.params = params
@@ -308,9 +385,11 @@ class Engine:
         collects each admitted row's last-prompt-position hidden state."""
         b, c = tokens.shape
         positions = (base + torch.arange(c, device=self.device))[None].expand(b, c)
+        # per-row prefix mask: MoE layers dispatch only the real prompt tokens
+        valid = row_mask[:, None] & (positions <= last_idx[:, None])
         hidden, new_cache, _ = T.forward(
             self.params, self.cfg, tokens, positions=positions, cache=cache,
-            return_hidden=True,
+            return_hidden=True, valid=valid,
         )
         cache = self._merge(cache, new_cache, row_mask)
         idx = (last_idx - base).clamp(0, c - 1)
@@ -458,9 +537,11 @@ class Engine:
         if not self.active.any():
             return finished
         t0 = time.monotonic()
+        # valid=active: inactive rows are dispatched to no MoE expert
         logits, self.cache, _ = T.forward(
             self.params, self.cfg, self._tensor(self.last_token)[:, None],
             positions=self._tensor(self.positions)[:, None], cache=self.cache,
+            valid=self._tensor(self.active)[:, None],
         )
         nxt = self._sample(logits[:, -1], self.positions)
         active_slots = np.flatnonzero(self.active)

@@ -1,11 +1,10 @@
 """Packing-plan subsystem: enumerate → score → autotune → select.
 
-The port's copy of the reference's ``repro.tuning`` for ``dsp_tuned``:
-``plans`` (the enumerators), ``score`` (error metrics), ``autotune`` (the
-kernel-variant sweep on the card), ``tuner`` (budgeted selection,
-per-layer tables) and ``plandb`` (the persisted plan database).  The
-reference's ``mixed`` (sensitivity-driven per-layer widths, the
-``dsp_mixed`` serving mode) is the next slice of ROADMAP queue 6.
+The port's copy of the reference's ``repro.tuning``: ``plans`` (the
+enumerators), ``score`` (error metrics), ``autotune`` (the kernel-variant
+sweep on the card), ``tuner`` (budgeted selection, per-layer tables),
+``mixed`` (sensitivity-driven per-layer widths, the ``dsp_mixed`` serving
+mode) and ``plandb`` (the persisted plan database).
 """
 
 from .autotune import (
@@ -15,9 +14,23 @@ from .autotune import (
     candidate_blocks,
     default_timer,
 )
+from .mixed import (
+    DEFAULT_MIXED_BUDGET,
+    DEFAULT_WIDTH_CANDIDATES,
+    NOISE_FLOOR,
+    PROBES,
+    LayerSensitivity,
+    MixedAllocation,
+    allocate_mixed_plans,
+    measure_layer_sensitivity,
+    mixed_precision_plan,
+    suggest_budget,
+)
 from .plandb import (
     SCHEMA_VERSION,
     PlanDB,
+    allocation_from_json,
+    allocation_to_json,
     plan_key,
     report_from_json,
     report_to_json,
@@ -63,6 +76,18 @@ __all__ = [
     "plan_key",
     "report_to_json",
     "report_from_json",
+    "allocation_to_json",
+    "allocation_from_json",
+    "DEFAULT_MIXED_BUDGET",
+    "DEFAULT_WIDTH_CANDIDATES",
+    "NOISE_FLOOR",
+    "PROBES",
+    "LayerSensitivity",
+    "MixedAllocation",
+    "allocate_mixed_plans",
+    "measure_layer_sensitivity",
+    "mixed_precision_plan",
+    "suggest_budget",
     "spec_to_json",
     "spec_from_json",
     "PlanReport",

@@ -1,10 +1,11 @@
 """Persisted plan database: engine builds consult it before they search.
 
-The port's copy of the reference's ``repro.tuning.plandb`` for the
-``dsp_tuned`` plan tables.  The engine computes a :func:`plan_key`
+The port's copy of the reference's ``repro.tuning.plandb``: ``dsp_tuned``
+plan tables (``"tuned"`` entries) and ``dsp_mixed`` width allocations
+(``"mixed"`` entries).  The engine computes a :func:`plan_key`
 fingerprint, asks :class:`PlanDB` for it, and only falls back to
 search-and-store on a miss, so a restarted engine builds without scoring
-a single plan.
+a single plan or running a single sensitivity probe.
 
 Storage rides :class:`~repro_torch.checkpoint.checkpointer.Checkpointer`:
 
@@ -24,9 +25,12 @@ Storage rides :class:`~repro_torch.checkpoint.checkpointer.Checkpointer`:
   engine), the packable (path, shape) coverage and every search setting.
 
 Serialization round-trips the full :class:`~repro_torch.tuning.tuner.PlanReport`,
-measured floats included.  The reference's ``dsp_mixed`` allocations and
-governor tiers (``allocation_to_json``, the ``"mixed"`` and ``"tiers"``
-entries) wait for ``tuning/mixed.py`` and the governor.
+measured floats included, and for ``dsp_mixed`` the whole
+:class:`~repro_torch.tuning.mixed.MixedAllocation` with its per-layer
+sensitivities, under the reference's schema: an allocation the reference
+wrote reads back here to an equal record (``tuning.mixed.PROBES`` stays
+at zero on a warm build).  The governor's ``"tiers"`` entries wait for
+the governor.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import json
 from typing import Any
 
 from ..checkpoint.checkpointer import Checkpointer
+from .mixed import LayerSensitivity, MixedAllocation
 from .plans import spec_from_json, spec_to_json
 from .tuner import PlanReport
 
@@ -46,6 +51,8 @@ __all__ = [
     "plan_key",
     "report_to_json",
     "report_from_json",
+    "allocation_to_json",
+    "allocation_from_json",
 ]
 
 # Bump whenever the serialized layout (report fields, envelope, key recipe)
@@ -90,6 +97,57 @@ def report_from_json(d: dict) -> PlanReport:
     )
 
 
+def _bits_key(bits: tuple[int, int]) -> str:
+    return f"{bits[0]},{bits[1]}"
+
+
+def _bits_from_key(s: str) -> tuple[int, int]:
+    a, w = s.split(",")
+    return (int(a), int(w))
+
+
+def allocation_to_json(alloc: MixedAllocation) -> dict:
+    """Full mixed-allocation record, sensitivities included (so a warm
+    engine exposes the same ``mixed_allocation`` a cold build would)."""
+    return {
+        "assignments": {p: list(b) for p, b in alloc.assignments.items()},
+        "plans": {p: report_to_json(r) for p, r in alloc.plans.items()},
+        "base_bits": list(alloc.base_bits),
+        "budget": alloc.budget,
+        "predicted_error": alloc.predicted_error,
+        "cost": alloc.cost,
+        "base_cost": alloc.base_cost,
+        "sensitivities": [
+            {
+                "path": s.path,
+                "n_values": s.n_values,
+                "errors": {_bits_key(b): e for b, e in s.errors.items()},
+            }
+            for s in alloc.sensitivities
+        ],
+    }
+
+
+def allocation_from_json(d: dict) -> MixedAllocation:
+    return MixedAllocation(
+        assignments={p: tuple(b) for p, b in d["assignments"].items()},
+        plans={p: report_from_json(r) for p, r in d["plans"].items()},
+        base_bits=tuple(d["base_bits"]),
+        budget=d["budget"],
+        predicted_error=d["predicted_error"],
+        cost=d["cost"],
+        base_cost=d["base_cost"],
+        sensitivities=tuple(
+            LayerSensitivity(
+                path=s["path"],
+                n_values=int(s["n_values"]),
+                errors={_bits_from_key(k): v for k, v in s["errors"].items()},
+            )
+            for s in d["sensitivities"]
+        ),
+    )
+
+
 # ---- keying ----------------------------------------------------------------
 
 
@@ -110,12 +168,13 @@ def plan_key(cfg, serve_cfg, params) -> str:
 
     ``cfg`` is the model config the engine serves (its ``quant`` already
     switched to the mode and the resolved ``use_kernel``), ``params`` the
-    tree actually quantized (after any projection fusion).  Sampling,
-    slots and the like keep the key stable — they never alter plans."""
-    from ..core.packed_params import iter_packable_weights
+    tree actually quantized (after any projection fusion; MoE expert
+    stacks count per expert).  Sampling, slots and the like keep the key
+    stable — they never alter plans."""
+    from ..core.packed_params import iter_packable_weights, split_expert_stacks
 
     shapes = sorted({(path, tuple(leaf.shape))
-                     for path, leaf in iter_packable_weights(params)})
+                     for path, leaf in iter_packable_weights(split_expert_stacks(params))})
     device = params["embed"]["w"].device.type
     material = {
         "schema": SCHEMA_VERSION,

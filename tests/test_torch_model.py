@@ -199,6 +199,6 @@ def test_chunked_prefill_and_cached_decode_logits(setup, mode):
 
 
 def test_other_families_raise():
-    cfg = t_get_config("dbrx-132b", smoke=True)
-    with pytest.raises(NotImplementedError, match="moe"):
+    cfg = t_get_config("xlstm-1.3b", smoke=True)
+    with pytest.raises(NotImplementedError, match="ssm"):
         TT.init_params(cfg, device="cpu")

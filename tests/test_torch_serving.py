@@ -152,13 +152,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights):
 
 
 def test_unported_knobs_are_rejected_by_name():
-    for name, value in (("governor", True), ("tp", 2), ("mixed_budget", 0.1),
-                        ("deadline_ms", 5.0), ("page_size", 8),
-                        ("plan_bits", "auto")):
+    for name, value in (("governor", True), ("tp", 2), ("deadline_ms", 5.0),
+                        ("page_size", 8), ("n_pages", 4), ("watermark_pages", 1)):
         with pytest.raises(NotImplementedError, match=name):
             ServeConfig(device="cpu", **{name: value})
-    with pytest.raises(NotImplementedError, match="dsp_mixed"):
-        ServeConfig(device="cpu", quant_mode="dsp_mixed")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

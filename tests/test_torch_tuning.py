@@ -315,7 +315,7 @@ def test_engine_build_on_the_kernel_path_picks_reference_plans(weights):
     same plan on every path (the build runs no kernel)."""
     jcfg, tcfg, jparams, tparams = weights
     jeng = JEngine(jcfg, jparams, JServeConfig(use_kernel=True, **KW))
-    _, _, table, db = tengine._prepare_serving_params(
+    _, _, table, _, db = tengine._prepare_serving_params(
         tcfg, tparams, ServeConfig(device="cpu", use_kernel=True, **KW),
         use_kernel=True, device=torch.device("cpu"), plan_table=None)
     assert db is None
@@ -337,10 +337,18 @@ def test_plan_table_override_wraps_specs(weights):
 
 
 def test_unported_mixed_knobs_name_the_next_slice():
-    for kwargs in (dict(plan_bits="auto"), dict(quant_mode="dsp_mixed"),
-                   dict(mixed_budget=0.1), dict(calib_tokens=8),
-                   dict(width_candidates=((4, 4),))):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ServeConfig(device="cpu", **kwargs)
+    # the dsp_mixed knobs are ported now: each is accepted as the
+    # reference accepts it, and plan_bits="auto" promotes dsp_tuned
+    for kwargs in (dict(quant_mode="dsp_tuned", plan_bits="auto"),
+                   dict(quant_mode="dsp_mixed"), dict(mixed_budget=0.1),
+                   dict(calib_tokens=8), dict(width_candidates=((4, 4),))):
+        scfg = ServeConfig(device="cpu", **kwargs)
+        for name, value in kwargs.items():
+            if name != "quant_mode":
+                assert getattr(scfg, name) == value
+    assert ServeConfig(device="cpu", quant_mode="dsp_tuned",
+                       plan_bits="auto").quant_mode == "dsp_mixed"
     with pytest.raises(ValueError, match="plan_bits"):
         ServeConfig(device="cpu", plan_bits="4,4")
+    with pytest.raises(ValueError, match="plan_bits"):  # native has no widths
+        ServeConfig(device="cpu", plan_bits="auto")
