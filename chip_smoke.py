@@ -18,7 +18,10 @@ anything in it fails:
    (M 1, 2, 4, 8, 16; N a multiple of 16, of 8 only, of 4 only and odd;
    K 8192, split over blocks, and 202); the four matmul wrappers at the
    MoE path's shapes, (K, N) (2048, 1408), (1408, 2048) and the lm_head's
-   (2048, 163840), at M 1, 3, 7, 17, 33; then each kernel timed with CUDA
+   (2048, 163840), at M 1, 3, 7, 17, 33, and at the families' shapes
+   (``FAMILY_SHAPES``: jamba's Mamba projections and experts, xlstm's
+   N = 4 gates, h2o-danube's and whisper's lm_heads, N = 51866 among them)
+   at M 1, 4, 17, 64; then each kernel timed with CUDA
    events at the main path's decode (M=4) and prefill (M=64) shapes, beside
    its plain version, its bound and a library call, and at M=64 beside the
    M <= 16 kernel; at M=4 also by the replay of a CUDA graph of the same
@@ -46,12 +49,25 @@ anything in it fails:
    d_ff 1408, vocab 163840; 48 layers cut to 4; bf16 seeded weights)
    served with the same requests in native, int8, int4_packed, dsp_tuned
    (the tuner's plans) and dsp_packed, each packed kernel launched;
-5. whole-path agreement at the smoke configs (qwen1.5-110b and
-   moonshot-v1-16b-a3b): the kernel engine and the plain-version engine
-   emit identical greedy tokens in int4_packed, dsp_tuned (mr plan, each
-   expert's too), dsp_packed and dsp_mixed (one allocation, from the first
-   kernel engine's sensitivity pass, handed to the other three), with
-   prefill chunks of 8 rows and of 32 (the M > 16 kernels);
+   then the families, each config's counts zeroed just before it and read
+   just after, all at full width with bf16 seeded weights and the same
+   slots and requests: jamba-v0.1-52b (8 of 32 layers, one attention
+   group) and xlstm-1.3b (all 48 layers) in native, int8, int4_packed,
+   dsp_tuned and dsp_packed; h2o-danube-3-4b (2 layers, the window does
+   not wrap at max_len 64), whisper-large-v3 (2 decoder and 2 encoder
+   layers; also ``encode`` on 1500 frames and a decoder forward over its
+   output) and llava-next-mistral-7b (2 layers; also a forward with its
+   2880 patch embeddings) in native, int4_packed and dsp_tuned; each
+   packed mode must launch its kernels (a sliding window prefills one
+   token a chunk: its M <= 16 kernels only), logits must be finite;
+5. whole-path agreement at the smoke configs (qwen1.5-110b,
+   moonshot-v1-16b-a3b and the five families): the kernel engine and the
+   plain-version engine emit identical greedy tokens in int4_packed,
+   dsp_tuned (mr plan, each expert's too), dsp_packed and, for qwen,
+   moonshot and xlstm, dsp_mixed (one allocation, from the first kernel
+   engine's sensitivity pass, handed to the other three), with prefill
+   chunks of 8 rows and of 32 (the M > 16 kernels); h2o-danube with a
+   30-token prompt that crosses its 32-token window;
 6. the paper's arithmetic on the card: ``scheme_stats`` of the five
    schemes on INT4 (delta 3), INT4 overpacked (delta -2) and the six
    4x5-bit products (Tables I/II), equal to the same calls on the CPU, and
@@ -160,6 +176,27 @@ SLICE_N = 16384  # plain versions run in column slices to bound their memory
 # at the per-expert row counts of MoE dispatch
 MOE_SHAPES = [(2048, 1408), (1408, 2048), (2048, 163840)]
 MOE_ROWS = (1, 3, 7, 17, 33)
+# phase 3: the families' linear shapes (K, N) no earlier path reached:
+# jamba's in_proj, x_proj, dt_proj, out_proj and experts (up/gate, down);
+# xlstm's projections and its N = 4 gates (float leaves, quantized at every
+# call); h2o-danube's wk/wv, down and lm_head; whisper's up and its lm_head
+# (N % 4 = 2); each at decode and prefill row counts
+FAMILY_SHAPES = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096), (4096, 14336),
+                 (14336, 4096), (2048, 2048), (2048, 4), (3840, 960), (10240, 3840),
+                 (3840, 32000), (1280, 5120), (1280, 51866)]
+FAMILY_ROWS = (1, 4, 17, 64)
+# the families phase: each config at full width, its depth cut (whisper's
+# encoder, which the engine never runs, to 2 layers too), in these modes
+ALL_MODES = ("native", "int8", "int4_packed", "dsp_tuned", "dsp_packed")
+FEW_MODES = ("native", "int4_packed", "dsp_tuned")
+FAMILIES = [("jamba-v0.1-52b", dict(n_layers=8), ALL_MODES),
+            ("xlstm-1.3b", {}, ALL_MODES),
+            ("h2o-danube-3-4b", dict(n_layers=2), FEW_MODES),
+            ("whisper-large-v3", dict(n_layers=2, n_encoder_layers=2), FEW_MODES),
+            ("llava-next-mistral-7b", dict(n_layers=2), FEW_MODES)]
+# phase 5: h2o-danube's smoke window is 32 tokens; this prompt and 6 new
+# tokens cross it
+WRAP_PROMPT_LEN = 30
 
 
 def log(msg: str) -> None:
@@ -371,26 +408,27 @@ def check_kernels(torch, K, ref, checks: list) -> None:
     torch.cuda.synchronize()
 
 
-def check_moe_geometries(torch, K, ref, checks: list) -> None:
+def check_geometries(torch, K, ref, checks: list, shapes, rows, tag: str,
+                     seed: int) -> None:
     """The four matmul wrappers bit-exact against their plain versions at
-    the MoE path's shapes (``MOE_SHAPES``) and per-expert row counts
-    (``MOE_ROWS``, each M choosing its kernel): int4_matmul,
-    packed_matmul (``INT4_EXACT``) and packed_matmul_prepacked in the fused
-    form with the main plan, the exact preset and an a8w8 plan (and the
-    int form with the main plan).  Plain versions run in column slices."""
+    a path's ``shapes`` (K, N) and row counts (``rows``, each M choosing its
+    kernel): int4_matmul, packed_matmul (``INT4_EXACT``) and
+    packed_matmul_prepacked in the fused form with the main plan, the exact
+    preset and an a8w8 plan (and the int form with the main plan).  Plain
+    versions run in column slices."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     exact = ref.INT4_EXACT
     plans = [ref.spec_from_name(MAIN_PLAN), exact, ref.spec_from_name("a8w8-p11-n1-full-c4")]
 
     def cols(t, a, b):
         return None if t is None else t[..., a:b]
 
-    for k, n in MOE_SHAPES:
+    for k, n in shapes:
         w4 = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
         w8 = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
-        for m in MOE_ROWS:
-            where = f"moe M={m} K={k} N={n}"
+        for m in rows:
+            where = f"{tag} M={m} K={k} N={n}"
             x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
             want = by_columns(torch, lambda a, b: K.int4_matmul_plain(x, w4[:, a:b]), n)
             checks.append((K.int4_variant(m), where, max_diff(torch, K.int4_matmul(x, w4), want)))
@@ -405,8 +443,8 @@ def check_moe_geometries(torch, K, ref, checks: list) -> None:
             pw = ref.pack_weight_words(w_s, spec)
             del w_s
             zp = 1 << (spec.bits_a - 1)
-            for m in MOE_ROWS:
-                where = f"{spec.name()} moe M={m} K={k} N={n}"
+            for m in rows:
+                where = f"{spec.name()} {tag} M={m} K={k} N={n}"
                 xf = torch.randn((m, k), generator=gen, device=dev)
                 scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / (zp - 1)
                 want = by_columns(torch, lambda a, b: K.packed_matmul_prepacked_plain(
@@ -811,20 +849,99 @@ def serve_moe(torch, K, P, card: str) -> dict:
                 modes=results)
 
 
-def agreement(torch, P, cfg, params, mode: str, table=None, widths=None) -> dict:
+# the kernels each packed mode launches, in decode (M <= 16) and in 64-row
+# prefill chunks (M > 16); a sliding window prefills one token a chunk, so
+# its prefill runs the M <= 16 kernels only
+MODE_KERNELS = {"int4_packed": ("int4_matmul", "int4_matmul_tc"),
+                "dsp_tuned": ("packed_matmul_prepacked", "packed_matmul_prepacked_tiled"),
+                "dsp_packed": ("packed_matmul", "packed_matmul_tiled")}
+
+
+def serve_families(torch, K, P, card: str) -> tuple[dict, dict]:
+    """The five families at full width (``FAMILIES``: depth cut, bf16 seeded
+    weights), each served greedily with phase 4's slots and requests in its
+    modes, one engine built and freed at a time; each config's launch counts
+    zeroed just before it and read just after, and every packed mode must
+    have launched its kernels.  whisper also runs ``encode`` on 1500 frames
+    and a decoder forward over its output (real cross-attention), llava a
+    forward with its 2880 patch embeddings prepended; their logits must be
+    finite.  Returns the numbers and the launches per config."""
+    out, launches = {}, {}
+    for arch, cut, modes in FAMILIES:
+        zero_counts(K)
+        cfg = P.dataclasses.replace(P.get_config(arch), **cut)
+        t0 = time.perf_counter()
+        params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        n_weights = sum(t.numel() for t in tree_leaves(params))
+        log(f"families: {arch} at full width, {cfg.n_layers} layers, {n_weights / 1e9:.3f} G "
+            f"weights ({2 * n_weights / 1e9:.2f} GB bf16), made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator().manual_seed(0)
+        prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+                   for n in (5, 17, 30)]
+        extra = {}
+        with torch.inference_mode():
+            tokens = torch.tensor([prompts[0]], device="cuda")
+            if cfg.family == "encdec":
+                frames = torch.randn((1, cfg.encoder_len, cfg.d_model), generator=torch.Generator(
+                    device="cuda").manual_seed(1), device="cuda", dtype=torch.bfloat16)
+                enc = P.T.encode(params, cfg, frames)
+                logits = P.T.forward(params, cfg, tokens, encoder_out=enc)[0]
+                extra["encoder_out"] = list(enc.shape)
+            elif cfg.family == "vlm":
+                pe = torch.randn((1, cfg.n_patches, cfg.d_model), generator=torch.Generator(
+                    device="cuda").manual_seed(1), device="cuda", dtype=torch.bfloat16)
+                logits = P.T.forward(params, cfg, tokens, patch_embeds=pe)[0]
+                extra["patch_embeds"] = list(pe.shape)
+            if extra:
+                if not bool(torch.isfinite(logits).all()):
+                    raise RuntimeError(f"{arch}: non-finite logits with {extra}")
+                log(f"families: {arch} forward with {extra}: logits {list(logits.shape)}, "
+                    "finite")
+                del logits
+        results = {}
+        torch.cuda.reset_peak_memory_stats()
+        for mode in modes:
+            def inspect(engine, build_s: float, probes: int) -> dict:
+                served = leaf_plans(P, engine.params)
+                if served:
+                    log(f"{arch} {mode}: served plans {served} (leaves)")
+                return dict(served_plans=served)
+
+            results[mode], _ = run_engine(torch, K, P, card, cfg, params, prompts,
+                                          f"{arch} {mode}", inspect=inspect, quant_mode=mode)
+            prefill_m = 4 if cfg.sliding_window else 64
+            for kernel in MODE_KERNELS.get(mode, ())[:1 if prefill_m <= 16 else 2]:
+                if results[mode]["launches"][kernel] < 1:
+                    raise RuntimeError(f"{kernel} never launched serving {arch} {mode}")
+        launches[arch] = kernel_counts(K)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = dict(config=dict(name=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+                                     d_model=cfg.d_model, vocab=cfg.vocab_size,
+                                     weights=n_weights, **extra),
+                         modes=results)
+        log(f"families: {arch} launches {launches[arch]}")
+    return out, launches
+
+
+def agreement(torch, P, cfg, params, mode: str, table=None, widths=None,
+              prompts=None, max_len: int = 32) -> dict:
     """Kernel engine against plain-version engine at a smoke config, greedy
     tokens identical with prefill chunks of 4 rows x 2 slots (the M <= 16
     kernels) and of 16 (the M > 16 ones).  ``dsp_mixed`` runs its
     sensitivity pass once, in the first kernel engine, and hands that
     allocation to the other three."""
-    prompts = [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
+    prompts = prompts or [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
     allocation, out = None, {}
     extra = {} if widths is None else dict(width_candidates=widths)
     for chunk in (4, 16):
         toks = []
         for uk in (True, False):
             eng = P.Engine(cfg, params, P.ServeConfig(
-                n_slots=2, max_len=32, prefill_chunk=chunk, max_new=6, quant_mode=mode,
+                n_slots=2, max_len=max_len, prefill_chunk=chunk, max_new=6, quant_mode=mode,
                 device="cuda", use_kernel=uk, **extra), plan_table=table,
                 mixed_allocation=allocation)
             if mode == "dsp_mixed" and allocation is None:
@@ -1357,7 +1474,8 @@ def main(argv: list[str] | None = None) -> int:
     checks: list = []
     t0 = time.perf_counter()
     check_kernels(torch, K, ref, checks)
-    check_moe_geometries(torch, K, ref, checks)
+    check_geometries(torch, K, ref, checks, MOE_SHAPES, MOE_ROWS, "moe", 2)
+    check_geometries(torch, K, ref, checks, FAMILY_SHAPES, FAMILY_ROWS, "families", 3)
     rows = time_kernels(torch, K, ref, checks)
     bad = [c for c in checks if c[2] != 0]
     for c in bad:
@@ -1395,19 +1513,33 @@ def main(argv: list[str] | None = None) -> int:
         if moe_out["modes"][mode]["launches"][kernel] < 1:
             raise RuntimeError(f"{kernel} never launched on the MoE path ({mode})")
 
+    # the families: five configs at full width, each config's counts zeroed
+    # just before it and read just after
+    t0 = time.perf_counter()
+    fam_out, fam_launches = serve_families(torch, K, P, card)
+    log(f"families: {time.perf_counter() - t0:.1f} s")
+
     # phase 5: kernel engine vs plain-version engine at the smoke configs;
     # prefill chunks of 4 rows x 2 slots run the M <= 16 kernels, of 16 the
     # M > 16 ones; dsp_mixed on one allocation handed to all four engines
     plan = ref.spec_from_name(MAIN_PLAN)
     agree = {}
-    for arch in ("qwen1.5-110b", "moonshot-v1-16b-a3b"):
+    for arch in ("qwen1.5-110b", "moonshot-v1-16b-a3b") + tuple(f[0] for f in FAMILIES):
         smoke = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
         sparams = T.init_params(smoke, seed=0, dtype=torch.float32, device="cuda")
-        for mode in PACKED_MODES + ("dsp_mixed",):
+        mixed = arch in ("qwen1.5-110b", "moonshot-v1-16b-a3b", "xlstm-1.3b")
+        served = dict(max_len=32)
+        if smoke.sliding_window:  # a prompt that crosses the window, and room for it
+            gen = torch.Generator().manual_seed(1)
+            wrap = torch.randint(2, smoke.vocab_size, (WRAP_PROMPT_LEN,), generator=gen)
+            served = dict(max_len=48, prompts=[[5, 17, 33, 2, 9], list(range(40, 51)),
+                                               wrap.tolist()])
+        for mode in PACKED_MODES + (("dsp_mixed",) if mixed else ()):
             # the main plan by hand on every path served, each expert's too
             table = ({p: plan for p, _ in iter_packable_weights(split_expert_stacks(sparams))}
                      if mode == "dsp_tuned" else None)
-            agree[f"{arch} {mode}"] = agreement(torch, P, smoke, sparams, mode, table)
+            agree[f"{arch} {mode}"] = agreement(torch, P, smoke, sparams, mode, table,
+                                                **served)
         del sparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -1479,9 +1611,11 @@ def main(argv: list[str] | None = None) -> int:
         r = head[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + moe_launches[name],
+            "launches": (launches[name] + moe_launches[name]
+                         + sum(c[name] for c in fam_launches.values())),
             "launches_by_path": {"qwen1.5-110b": launches[name],
-                                 "moonshot-v1-16b-a3b": moe_launches[name]},
+                                 "moonshot-v1-16b-a3b": moe_launches[name],
+                                 **{a: c[name] for a, c in fam_launches.items()}},
             "max_abs_err": max(c[2] for c in checks if c[0] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1523,6 +1657,7 @@ def main(argv: list[str] | None = None) -> int:
         json_path.write_text(json.dumps({
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": kernels, "timings": rows, "serving": serving_out, "moe": moe_out,
+            "families": fam_out,
             "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
             "attention_checks": attn_checks,

@@ -183,7 +183,8 @@ def fuse_projection_weights(params, fuse_attn: bool = True, fuse_mlp: bool = Tru
     linears becomes ``{"wqkv": ...}`` (cross-attention, under ``xattn``,
     never fuses); one holding up/gate/down with equal up and gate shapes
     becomes ``{"upgate": ..., "down": ...}``.  Biases concatenate alongside.
-    The layer list of ``groups`` is walked element by element.
+    Lists are walked element by element; a block that is itself a list
+    element (the inner stacks of the ssm and hybrid groups) stays unfused.
     """
 
     def is_linear(d) -> bool:

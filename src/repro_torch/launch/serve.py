@@ -3,7 +3,11 @@
   python -m repro_torch.launch.serve --arch qwen1.5-110b --smoke \\
       --quant dsp_tuned --plan-bits 4,4 --error-budget 0.5 --fuse all
 
-Runs on the card by default (``--device cuda``, the CUDA kernels);
+``--arch`` takes every architecture of the registry (``list_archs()``):
+the dense and moe families, xlstm-1.3b (ssm), jamba-v0.1-52b (hybrid),
+whisper-large-v3 (its decoder; the engine passes no encoder output),
+llava-next-mistral-7b (vlm, served on tokens) and h2o-danube-3-4b (a
+sliding window, prefilled one token a chunk).  Runs on the card by default (``--device cuda``, the CUDA kernels);
 ``--device cpu`` serves the plain versions.  Under ``--quant dsp_tuned``
 the tuner picks each layer's plan for ``--plan-bits`` within
 ``--error-budget`` (MAE per extraction); ``--autotune-plans`` ranks the
@@ -27,13 +31,13 @@ import time
 import numpy as np
 
 from ..models import transformer as T
-from ..models.registry import get_config
+from ..models.registry import get_config, list_archs
 from ..serving import Engine, SamplingParams, ServeConfig
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

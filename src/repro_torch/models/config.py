@@ -1,9 +1,8 @@
 """ModelConfig: one dataclass describes every architecture family.
 
 The port's own copy of the reference's ``repro.models.config.ModelConfig``
-(plain data, field for field).  The port builds the ``dense`` family;
-the other families' fields are kept so every registry entry reads the
-same, and building one raises.
+(plain data, field for field, with the derived ``hd``, ``group_size`` and
+``n_groups``).  The port builds every family of the registry.
 """
 
 from __future__ import annotations
@@ -66,3 +65,19 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def group_size(self) -> int:
+        """Layers per group (one structure repeated ``n_groups`` times)."""
+        if self.family == "hybrid" and self.attn_every:
+            return self.attn_every
+        if self.family == "ssm" and self.slstm_every:
+            return self.slstm_every
+        return 1
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % self.group_size:
+            raise ValueError(f"{self.name}: n_layers {self.n_layers} is not a "
+                             f"multiple of the group size {self.group_size}")
+        return self.n_layers // self.group_size

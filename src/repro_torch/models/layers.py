@@ -1,13 +1,15 @@
-"""Transformer layers of the dense family, as functions on tensors.
+"""Transformer layers, as functions on tensors.
 
 Counterpart of the reference's ``repro.models.layers``: ``rmsnorm``,
-``rope``, GQA ``attention`` (the causal no-cache branch, chunked online
-softmax under ``ModelConfig.attention_chunk``, and the dense-cache branch
-with per-row positions), the SwiGLU ``mlp`` and ``gelu_mlp``, each with the
-engine-build fused projections (``wqkv``, ``upgate``).  Every projection
-goes through :func:`core.packed_linear.apply_linear`.  Attention is plain
-PyTorch (einsum and softmax), as it is jnp in the reference; the paged,
-sliding-window and cross-attention branches are not ported yet and raise.
+``rope``, GQA ``attention`` (the no-cache branch, causal or not, chunked
+online softmax under ``ModelConfig.attention_chunk``; the dense-cache
+branch with per-row positions; the sliding window's causal window mask and
+its ring cache written at ``pos % window``; cross-attention from
+``kv_x``), the SwiGLU ``mlp`` and ``gelu_mlp``, each with the engine-build
+fused projections (``wqkv``, ``upgate``).  Every projection goes through
+:func:`core.packed_linear.apply_linear`.  Attention is plain PyTorch
+(einsum and softmax), as it is jnp in the reference; the paged branch is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -93,16 +95,17 @@ def attention(
     positions: torch.Tensor,
     cache: Params | None = None,
     causal: bool = True,
+    kv_x: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
-    """GQA attention.  ``cache=None``: full sequence (causal).  With a dense
+    """GQA attention.  ``cache=None``: the full sequence, causal (within
+    the sliding window, if the config has one) or not.  With a dense
     ``cache`` ({"k", "v"}: (B, window, n_kv, hd)): decode or cached chunked
-    prefill; every row writes its K/V at its own position and attends over
-    the cache.  Returns ``(out, new_cache)``; the cache passed in is not
-    modified (the engine merges rows, as the reference's)."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP queue 8)"
-        )
+    prefill; every row writes its K/V at its own position (at ``pos %
+    window`` in a sliding window's ring, which takes one position a call)
+    and attends over the cache.  ``kv_x`` is cross-attention: K and V come
+    from ``kv_x``, without rope, and fused ``wqkv`` is never used.
+    Returns ``(out, new_cache)``; the cache passed in is not modified (the
+    engine merges rows, as the reference's)."""
     if cache is not None and "pages_k" in cache:
         raise NotImplementedError(
             "paged attention is not ported yet (ROADMAP queue 9)"
@@ -112,18 +115,22 @@ def attention(
     spec = cfg.quant
     if "wqkv" in params:
         # engine-build fused projection (packed_params.fuse_projection_weights):
-        # bit-identical per column to the three unfused ones
+        # bit-identical per column to the three unfused ones; self-attention only
+        if kv_x is not None:
+            raise ValueError("fused wqkv is self-attention only")
         qkv = apply_linear(params["wqkv"], x, spec)
         q, k, v = qkv.split((nh * hd, nkv * hd, nkv * hd), dim=-1)
         q = q.reshape(b, s, nh, hd)
         k = k.reshape(b, s, nkv, hd)
         v = v.reshape(b, s, nkv, hd)
     else:
+        src = x if kv_x is None else kv_x
         q = apply_linear(params["wq"], x, spec).reshape(b, s, nh, hd)
-        k = apply_linear(params["wk"], x, spec).reshape(b, s, nkv, hd)
-        v = apply_linear(params["wv"], x, spec).reshape(b, s, nkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        k = apply_linear(params["wk"], src, spec).reshape(b, src.shape[1], nkv, hd)
+        v = apply_linear(params["wv"], src, spec).reshape(b, src.shape[1], nkv, hd)
+    if kv_x is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -132,9 +139,11 @@ def attention(
             row_pos = positions[:, 0]
         else:
             row_pos = positions.reshape(-1)[:1].expand(b)
+        # a sliding window's ring takes position pos at slot pos % window;
         # the update slice is clamped to fit the window, as
         # lax.dynamic_update_slice clamps its start index
-        start = row_pos.clamp(0, window - s)
+        slot = row_pos % window if cfg.sliding_window else row_pos
+        start = slot.clamp(0, window - s)
         idx = (start[:, None] + torch.arange(s, device=x.device)[None])
         idx = idx[:, :, None, None].expand(b, s, nkv, hd)
         k_all = cache["k"].scatter(1, idx, k.to(cache["k"].dtype))
@@ -143,12 +152,20 @@ def attention(
         k, v = k_all, v_all
         cache_positions = torch.arange(window, device=x.device)
         qidx = torch.arange(s, device=x.device)
-        valid = (cache_positions[None, None, :]
-                 <= row_pos[:, None, None] + qidx[None, :, None])
+        if cfg.sliding_window:
+            # the ring: every slot written so far is inside the window
+            valid = ((cache_positions[None, :] <= slot[:, None])
+                     | (row_pos[:, None] >= window))
+            valid = valid[:, None, :].expand(b, s, window)
+        else:
+            valid = (cache_positions[None, None, :]
+                     <= row_pos[:, None, None] + qidx[None, :, None])
         mask = torch.where(valid[:, None, :, :], 0.0, NEG_INF)
     elif causal:
         ii = positions if positions.dim() == 2 else positions[None]
         ok = ii[:, None, :] <= ii[:, :, None]
+        if cfg.sliding_window:
+            ok &= ii[:, None, :] > ii[:, :, None] - cfg.sliding_window
         mask = torch.where(ok[:, None, :, :], 0.0, NEG_INF)
     else:
         mask = None
@@ -156,8 +173,10 @@ def attention(
     k = _repeat_kv(k, nh // nkv)
     v = _repeat_kv(v, nh // nkv)
     chunk = cfg.attention_chunk
-    if cache is None and causal and chunk and s > chunk and s % chunk == 0:
-        out = _chunked_causal_attention(q, k, v, chunk)
+    if (cache is None and kv_x is None and causal and chunk and s > chunk
+            and s % chunk == 0):
+        window = (cfg.sliding_window,) if cfg.sliding_window else ()
+        out = _chunked_causal_attention(q, k, v, chunk, *window)
     else:
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * hd**-0.5
         if mask is not None:
@@ -169,12 +188,13 @@ def attention(
 
 
 def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              chunk: int) -> torch.Tensor:
+                              chunk: int, window: int | None = None) -> torch.Tensor:
     """Online-softmax causal attention over key chunks, the reference's
     ``_chunked_causal_attention``: the S x S scores never exist at once,
     only (B, H, S, chunk).  Running max, denominator and accumulator in
-    f32, masked scores ``NEG_INF``, division by ``max(l, 1e-30)``.  Query
-    positions are the standard ``arange(S)``.  (B, S, H, hd) in and out."""
+    f32, masked scores ``NEG_INF``, division by ``max(l, 1e-30)``; a
+    ``window`` masks keys at or before ``q - window``.  Query positions are
+    the standard ``arange(S)``.  (B, S, H, hd) in and out."""
     b, s, h, hd = q.shape
     scale = hd**-0.5
     q_pos = torch.arange(s, device=q.device)
@@ -185,6 +205,8 @@ def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         keys = slice(i * chunk, (i + 1) * chunk)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k[:, keys]).to(torch.float32) * scale
         ok = q_pos[keys][None, :] <= q_pos[:, None]
+        if window:
+            ok &= q_pos[keys][None, :] > q_pos[:, None] - window
         scores = torch.where(ok, scores, NEG_INF)
         m_new = torch.maximum(m, scores.amax(-1))
         alpha = torch.exp(m - m_new)
@@ -199,7 +221,10 @@ def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype, device: torch.device) -> Params:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """Dense K/V of ``max_len`` positions, or of a sliding window's ring
+    (``min(max_len, window)`` slots)."""
+    window = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, window, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

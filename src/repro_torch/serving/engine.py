@@ -14,6 +14,16 @@ queued requests into free slots and finished sequences free them.
 * **sampling** — greedy or temperature/top-k/top-p per slot
   (``serving.sampling``).
 
+Every family of the registry is served.  The cache holds each slot's
+state in row ``slot`` of every leaf: K/V, and the f32 recurrent state of
+the ssm and hybrid families, which a prefill chunk advances by each row's
+valid tokens only (``valid``), so that chunked prefill equals chunk-1
+prefill.  A sliding window (h2o-danube) prefills one token a chunk, as the
+reference does.  The encdec decoder runs without an encoder output, as the
+reference's engine runs it: its cross-attention is roped self-attention
+over each call's tokens, bidirectional inside a prefill chunk, so its
+tokens depend on ``prefill_chunk``.
+
 ``quant_mode`` selects the weight path (``native`` or its alias
 ``none``, ``int8``, ``int4_packed``, ``dsp_packed``, ``dsp_tuned``,
 ``dsp_mixed``), converted once at build
@@ -305,6 +315,22 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
     return cfg, params, table, mixed_allocation, db_stats
 
 
+def _rows(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """The (n_slots,) ``mask`` shaped to broadcast over ``leaf``'s dim 0."""
+    return mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+
+
+def _map_cache(fn, *trees):
+    """``fn`` over the leaves of one or more caches of the same structure
+    (lists of group dicts, inner lists for the recurrent stacks)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map_cache(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [_map_cache(fn, *items) for items in zip(*trees)]
+    return fn(*trees)
+
+
 class Engine:
     """Fixed-slot batched serving engine.
 
@@ -343,7 +369,12 @@ class Engine:
         self.params = params
         self.scfg = serve_cfg
         b = serve_cfg.n_slots
-        self._chunk = max(1, min(serve_cfg.prefill_chunk, serve_cfg.max_len))
+        # a sliding window's ring cache takes one position a call: a chunk
+        # landing in the ring would overwrite slots that earlier queries of
+        # the chunk still read, so sliding windows prefill one token a chunk,
+        # as the reference's engine does
+        self._chunk = 1 if cfg.sliding_window else max(
+            1, min(serve_cfg.prefill_chunk, serve_cfg.max_len))
         # the prefill grid is padded to whole chunks: allocate the cache on
         # the same grid so the last chunk's writes never clamp
         window = -(-serve_cfg.max_len // self._chunk) * self._chunk
@@ -373,11 +404,10 @@ class Engine:
 
     @staticmethod
     def _merge(cache, new_cache, row_mask: torch.Tensor):
-        """Take ``new_cache`` rows where ``row_mask``, ``cache`` elsewhere."""
-        m = row_mask[:, None, None, None]
-        return [{"attn": {n: torch.where(m, nl["attn"][n], ol["attn"][n])
-                          for n in ("k", "v")}}
-                for ol, nl in zip(cache, new_cache)]
+        """Take ``new_cache`` rows where ``row_mask``, ``cache`` elsewhere,
+        in every leaf (the slot axis is dim 0 of each)."""
+        return _map_cache(lambda old, new: torch.where(_rows(row_mask, old), new, old),
+                          cache, new_cache)
 
     def _prefill_chunk(self, cache, tokens, base: int, row_mask, last_idx,
                        last_hidden):
@@ -459,11 +489,11 @@ class Engine:
             self._top_k[slot] = req.sampling.top_k
             self._top_p[slot] = req.sampling.top_p
 
-        # a fresh request must not see the previous occupant's KV
-        fresh = self._tensor(row_mask)[:, None, None, None]
-        cache = [{"attn": {n: layer["attn"][n].masked_fill(fresh, 0)
-                           for n in ("k", "v")}}
-                 for layer in self.cache]
+        # a fresh request must not see the previous occupant's KV or
+        # recurrent state: its rows of every cache leaf are zeroed
+        fresh = self._tensor(row_mask)
+        cache = _map_cache(lambda leaf: leaf.masked_fill(_rows(fresh, leaf), 0),
+                           self.cache)
         last_hidden = torch.zeros((b, self.cfg.d_model), dtype=T.compute_dtype(self.cfg),
                                   device=self.device)
         last_idx_t = self._tensor(last_idx)
@@ -537,7 +567,8 @@ class Engine:
         if not self.active.any():
             return finished
         t0 = time.monotonic()
-        # valid=active: inactive rows are dispatched to no MoE expert
+        # valid=active: inactive rows neither advance their recurrent state
+        # nor reach an MoE expert
         logits, self.cache, _ = T.forward(
             self.params, self.cfg, self._tensor(self.last_token)[:, None],
             positions=self._tensor(self.positions)[:, None], cache=self.cache,
