@@ -60,6 +60,25 @@ anything in it fails:
    2880 patch embeddings) in native, int4_packed and dsp_tuned; each
    packed mode must launch its kernels (a sliding window prefills one
    token a chunk: its M <= 16 kernels only), logits must be finite;
+   then four serving paths, each with its counts zeroed just before it
+   and read just after: the continuous path (qwen1.5-110b at full width,
+   4 layers): ``ContinuousEngine`` in native, int4_packed and dsp_tuned on
+   the same requests, its greedy tokens and its kernel launches a decode
+   step equal to the fixed-slot engine's, then a mixed load in
+   int4_packed (16 requests on 8 lanes, prompts of 5-60 tokens, half of
+   them opening with a registered 32-token system prompt, 8-24 new tokens,
+   max_len 128, a pool of 20 pages of 16 that preempts), reporting decode
+   ms/step, prefill tok/s, TTFT p50/p99, peak pages, preemptions,
+   copy-on-write copies and peak memory, every stream equal to the same
+   request served alone (at least one preemption and one copy); the
+   governor path (2 layers, dsp_tuned, a plan database): the tiers'
+   certified MAE, the build with the tier search and warm from the
+   database (no tier search, the same tiers), one swap by ``set_tier``
+   and one by queue depth (and back), decode ms/step on each tier; the
+   replica path: ``ReplicaFront`` over two int4_packed engines, each
+   request's route, the routed tokens equal one replica's; the CLI path:
+   ``launch.serve`` at the smoke config with ``--engine continuous``,
+   ``--governor --deadline-ms`` and ``--replicas 2`` on the card;
 5. whole-path agreement at the smoke configs (qwen1.5-110b,
    moonshot-v1-16b-a3b and the five families): the kernel engine and the
    plain-version engine emit identical greedy tokens in int4_packed,
@@ -67,7 +86,10 @@ anything in it fails:
    moonshot and xlstm, dsp_mixed (one allocation, from the first kernel
    engine's sensitivity pass, handed to the other three), with prefill
    chunks of 8 rows and of 32 (the M > 16 kernels); h2o-danube with a
-   30-token prompt that crosses its 32-token window;
+   30-token prompt that crosses its 32-token window; and in int4_packed
+   and dsp_tuned, ``ContinuousEngine`` (two lanes, pages of 8, prefill
+   chunks of 16) kernel against plain version, its tokens identical and
+   equal to the fixed-slot kernel engine's;
 6. the paper's arithmetic on the card: ``scheme_stats`` of the five
    schemes on INT4 (delta 3), INT4 overpacked (delta -2) and the six
    4x5-bit products (Tables I/II), equal to the same calls on the CPU, and
@@ -637,17 +659,23 @@ def leaf_plans(P, params) -> dict:
 
 
 def run_engine(torch, K, P, card: str, cfg, params, prompts, key: str, *,
-               inspect=None, table=None, allocation=None, **scfg) -> tuple[dict, list]:
-    """Build one engine (4 slots, max_len 64, prefill chunk 16, no EOS), serve
-    a 2-token warm-up request, then ``prompts`` greedily to 8 tokens each;
-    returns its numbers (build seconds, sensitivity probes run in the build,
-    prefill tok/s, median decode ms/step, launches per kernel in the serving
-    and in the build, MoE host reads per decode step, peak memory) and the
-    tokens.  ``inspect(engine, build_s)`` adds its own entries."""
+               inspect=None, table=None, allocation=None, engine_cls=None,
+               **scfg) -> tuple[dict, list]:
+    """Build one engine (``P.Engine`` unless ``engine_cls``; 4 slots, max_len
+    64, prefill chunk 16, no EOS), serve a 2-token warm-up request, then
+    ``prompts`` greedily to 8 tokens each; returns its numbers (build
+    seconds, sensitivity probes run in the build, prefill tok/s, median
+    decode ms/step, launches per kernel in the serving and in the build,
+    MoE host reads per decode step, peak memory, the tokens) and the tokens.
+    A decode step is a step that starts with the queue empty and no lane
+    prefilling (the fixed-slot engine's steps after the first, which
+    admits; the continuous engine's after the last prefill chunk).
+    ``inspect(engine, build_s)`` adds its own entries."""
+    engine_cls = engine_cls or P.Engine
     at_build = kernel_counts(K)
     probes0, reads0 = P.PROBES.count, P.HOST_READS["count"]
     t0 = time.perf_counter()
-    engine = P.Engine(cfg, params, P.ServeConfig(
+    engine = engine_cls(cfg, params, P.ServeConfig(
         n_slots=4, max_len=64, prefill_chunk=16, max_new=8, eos_token=-1,  # full budgets
         device="cuda", **scfg), plan_table=table, mixed_allocation=allocation)
     torch.cuda.synchronize()
@@ -661,21 +689,26 @@ def run_engine(torch, K, P, card: str, cfg, params, prompts, key: str, *,
     rids = [engine.submit(p, max_new=8, admit=False) for p in prompts]
     step_ms, step_reads, step_launches = [], [], []
     while engine.active.any() or sch.n_queued:
+        prefilling = getattr(engine, "_prefilling", None)
+        pure = not sch.n_queued and (prefilling is None or not prefilling.any())
         r0, l0 = P.HOST_READS["count"], sum(kernel_counts(K).values())
         t0 = time.perf_counter()
         engine.step()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        step_reads.append(P.HOST_READS["count"] - r0)
-        step_launches.append(sum(kernel_counts(K).values()) - l0)
-    logits = torch.from_numpy(engine.peek_logits())
-    if not bool(torch.isfinite(logits).all()):
-        raise RuntimeError(f"{key}: non-finite logits")
+        if pure:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_reads.append(P.HOST_READS["count"] - r0)
+            step_launches.append(sum(kernel_counts(K).values()) - l0)
+    if hasattr(engine, "peek_logits"):
+        logits = torch.from_numpy(engine.peek_logits())
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"{key}: non-finite logits")
+        del logits
     tokens = [list(engine.outputs[r]) for r in rids]
     lengths = [len(t) for t in tokens]
     if lengths != [8] * len(prompts) or len(next(iter(warm.values()))) != 2:
         raise RuntimeError(f"{key}: expected {len(prompts)} x 8 tokens, got {lengths}")
     after = kernel_counts(K)
-    decode = sorted(step_ms[1:])  # the first step also admits (prefill)
+    decode = sorted(step_ms)
     launches = {k: after[k] - before[k] for k in after}
     out = dict(
         build_s=build_s, probes=probes,
@@ -685,10 +718,11 @@ def run_engine(torch, K, P, card: str, cfg, params, prompts, key: str, *,
         decode_steps=len(decode),
         launches=launches,
         build_launches={k: before[k] - at_build[k] for k in before},
-        host_reads_per_decode_step=max(step_reads[1:], default=0),
-        # kernel launches of each decode step after the first (which admits)
-        decode_step_launches=step_launches[1:],
+        host_reads_per_decode_step=max(step_reads, default=0),
+        # kernel launches of each decode step
+        decode_step_launches=step_launches,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tokens=tokens,
         **extra,
     )
     log(f"serve {key:18s} on {card}: build {build_s:.1f} s"
@@ -701,7 +735,7 @@ def run_engine(torch, K, P, card: str, cfg, params, prompts, key: str, *,
            if out["host_reads_per_decode_step"] else "")
         + (f", launched in the build {out['build_launches']}"
            if any(out["build_launches"].values()) else ""))
-    del engine, logits
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -958,6 +992,361 @@ def agreement(torch, P, cfg, params, mode: str, table=None, widths=None,
             + (f" (one allocation, {allocation.distinct_widths} widths over "
                f"{len(allocation.assignments)} paths)" if allocation is not None else ""))
     return out
+
+# ---- the continuous, governor, replica and CLI paths --------------------------
+
+# the continuous path's mixed load (int4_packed): 16 requests on 8 lanes,
+# prompts of 5-60 tokens, half of them opening with a registered 32-token
+# system prompt (one of them the prompt alone, so that its adoption copies
+# the prefix's last page), 8-24 new tokens each; a pool of 20 pages of 16
+# (two lanes of max_len 128 need 16) preempts twice (the host's admission
+# and growth decide it, the same at any width)
+LOAD = dict(n_slots=8, max_len=128, prefill_chunk=16, page_size=16, n_pages=20,
+            watermark_pages=2, eos_token=-1)
+LOAD_REQUESTS, LOAD_PREFIX = 16, 32
+CONT_MODES = ("native", "int4_packed", "dsp_tuned")
+# the governor's controller in the governor path: degrade at a queue of 3
+GOVERNOR = dict(queue_high=3, queue_low=1, emergency_queue_high=24, hold_steps=2)
+# the governor path's depth: bf16 float weights (2 B a weight) and the two
+# tiers' leaves (2.51 B a packable weight each) beside the build's
+# transient, about 38 GB while the lm_head (8192 x 152064) is quantized
+# onto a pair-packed plan (phase 4's dsp_tuned engine peaks at 70.8 GB
+# over 15.9 GB of float weights and 16.7 GB of leaves); 3 layers run out of
+# the card's 80 GB, 2 reckon to about 58 GB
+GOVERNOR_LAYERS = 2
+
+
+def mixed_load(torch, vocab: int) -> tuple[list, list, list]:
+    """The mixed load's shared prefix, prompts and budgets, from a seed."""
+    gen = torch.Generator().manual_seed(2)
+    prefix = torch.randint(2, vocab, (LOAD_PREFIX,), generator=gen).tolist()
+    prompts, max_new = [], []
+    for i in range(LOAD_REQUESTS):
+        if i % 2 == 0:  # the system prompt, then 0-28 tokens of the request's own
+            own = 0 if i == 8 else int(torch.randint(1, 29, (), generator=gen))
+            prompts.append(prefix + torch.randint(2, vocab, (own,), generator=gen).tolist())
+        else:
+            n = int(torch.randint(5, 61, (), generator=gen))
+            prompts.append(torch.randint(2, vocab, (n,), generator=gen).tolist())
+        max_new.append(int(torch.randint(8, 25, (), generator=gen)))
+    return prefix, prompts, max_new
+
+
+def serve_continuous(torch, K, P, card: str, engine_runs: dict) -> dict:
+    """The continuous path at qwen1.5-110b's full width (phase 4's depth,
+    bf16 seeded weights): ``ContinuousEngine`` in native, int4_packed and
+    dsp_tuned on phase 4's requests, its tokens and its kernel launches a
+    decode step equal to phase 4's fixed-slot ``Engine``'s
+    (``engine_runs``); then the mixed load in int4_packed (``LOAD``), every
+    stream equal to the same request served alone by a fixed-slot engine,
+    at least one preemption and one copy-on-write copy."""
+    cfg = P.dataclasses.replace(P.get_config("qwen1.5-110b"), n_layers=4)
+    params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 17, 30)]
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in CONT_MODES:
+        results[mode], tokens = run_engine(torch, K, P, card, cfg, params, prompts,
+                                           f"continuous {mode}", quant_mode=mode,
+                                           engine_cls=P.ContinuousEngine)
+        slot = engine_runs[mode]
+        if tokens != slot["tokens"]:
+            raise RuntimeError(f"continuous {mode}: tokens {tokens} != the fixed-slot "
+                               f"engine's {slot['tokens']}")
+        got, want = set(results[mode]["decode_step_launches"]), set(slot["decode_step_launches"])
+        if got != want:
+            raise RuntimeError(f"continuous {mode}: {sorted(got)} launches a decode step, "
+                               f"the fixed-slot engine {sorted(want)}")
+        log(f"continuous {mode}: tokens and launches a decode step ({sorted(got)}) equal "
+            "the fixed-slot engine's")
+    results["load"] = serve_load(torch, K, P, card, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def serve_load(torch, K, P, card: str, cfg, params) -> dict:
+    """The mixed load through ``ContinuousEngine`` in int4_packed; each
+    request then served alone by a one-slot fixed-slot engine, greedy
+    tokens identical."""
+    prefix, prompts, budgets = mixed_load(torch, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = P.ContinuousEngine(cfg, params, P.ServeConfig(
+        quant_mode="int4_packed", device="cuda", **LOAD))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # no warm-up request: the prefix is registered before any submission
+    # (phase 4's engines warmed the process)
+    engine.register_shared_prefix(prefix)
+    rids = [engine.submit(p, max_new=m, admit=False) for p, m in zip(prompts, budgets)]
+    decode_ms, steps = [], 0
+    t_load = time.perf_counter()
+    while engine.active.any() or engine.scheduler.n_queued:
+        pure = not engine.scheduler.n_queued and not engine._prefilling.any()
+        t0 = time.perf_counter()
+        engine.step()
+        steps += 1
+        if pure:
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    load_s = time.perf_counter() - t_load
+    st = engine.stats()
+    streams = [list(engine.outputs[r]) for r in rids]
+    if [len(t) for t in streams] != budgets:
+        raise RuntimeError(f"load: {[len(t) for t in streams]} tokens, budgets {budgets}")
+    decode_ms.sort()
+    out = dict(
+        requests=len(prompts), prompt_lengths=[len(p) for p in prompts], max_new=budgets,
+        build_s=build_s, load_s=load_s, steps=steps,
+        decode_ms_per_step=decode_ms[len(decode_ms) // 2] if decode_ms else None,
+        decode_only_steps=len(decode_ms),
+        prefill_tok_s=st["prefill_tok_s"], decode_tok_s=st["decode_tok_s"],
+        p50_ttft_ms=st["p50_ttft_s"] * 1e3, p99_ttft_ms=st["p99_ttft_s"] * 1e3,
+        peak_pages=st["peak_pages_in_use"], n_pages=st["n_pages"],
+        preempted=st["preempted"], cow_copies=st["cow_copies"],
+        admissions=st["admissions"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    engine.alloc.check()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out["preempted"] < 1 or out["cow_copies"] < 1:
+        raise RuntimeError(f"load: {out['preempted']} preemptions, {out['cow_copies']} "
+                           "copy-on-write copies; expected at least one of each")
+    alone = P.Engine(cfg, params, P.ServeConfig(
+        quant_mode="int4_packed", device="cuda", n_slots=1, max_len=LOAD["max_len"],
+        prefill_chunk=LOAD["prefill_chunk"], eos_token=-1))
+    for i, (p, m) in enumerate(zip(prompts, budgets)):
+        want = alone.generate([p], max_new=m)
+        if streams[i] != next(iter(want.values())):
+            raise RuntimeError(f"load: request {i}'s stream {streams[i]} != served alone "
+                               f"{next(iter(want.values()))}")
+    del alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"load on {card}: {out['requests']} requests on {LOAD['n_slots']} lanes in "
+        f"{out['steps']} steps ({load_s:.2f} s): decode {out['decode_ms_per_step']:.2f} "
+        f"ms/step (median of {out['decode_only_steps']} decode-only steps), prefill "
+        f"{out['prefill_tok_s']:.1f} tok/s, TTFT p50 {out['p50_ttft_ms']:.1f} ms / p99 "
+        f"{out['p99_ttft_ms']:.1f} ms, peak pages {out['peak_pages']}/{out['n_pages']}, "
+        f"{out['preempted']} preemptions, {out['cow_copies']} copy-on-write copies, "
+        f"{out['admissions']} admissions, peak {out['peak_gb']:.1f} GB; every stream "
+        "equals the request served alone")
+    return out
+
+
+def serve_governor(torch, K, P, card: str) -> dict:
+    """The governor at qwen1.5-110b's full width, ``GOVERNOR_LAYERS`` deep,
+    dsp_tuned, on a temporary plan database: a cold build (the tuner's and
+    the tier search), then, with the controller detached, one swap by
+    ``set_tier`` (phase 4's requests on the narrow tier, then on the
+    primary), then the controller re-attached and a burst of ten requests
+    on four lanes that swaps by queue depth and back; then the engine
+    freed and built warm from the database (no tier search, the same
+    tiers)."""
+    cfg = P.dataclasses.replace(P.get_config("qwen1.5-110b"), n_layers=GOVERNOR_LAYERS)
+    params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_packable = sum(leaf.numel() for _, leaf in P.iter_packable_weights(params))
+    n_weights = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 17, 30)]
+    burst = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+             for n in (6, 9, 12, 15, 18, 21, 24, 27, 30, 33)]
+    gcfg = P.GovernorConfig(**GOVERNOR)
+    out = dict(layers=cfg.n_layers, weights=n_weights, packable_weights=n_packable,
+               reckoned_gb=(2 * n_weights + 2 * 2.51 * n_packable) / 1e9 + 38)
+    torch.cuda.reset_peak_memory_stats()
+    with P.tempfile.TemporaryDirectory() as db:
+        scfg = P.ServeConfig(n_slots=4, max_len=64, prefill_chunk=16, eos_token=-1,
+                             quant_mode="dsp_tuned", device="cuda", plan_db=db,
+                             governor=gcfg)
+        builds = []
+        for warm in (False, True):
+            P.TIER_SEARCHES.reset()
+            P.tuner._SCORE_CACHE.clear()  # the cold build scores every plan
+            t0 = time.perf_counter()
+            engine = P.ContinuousEngine(cfg, params, scfg)
+            torch.cuda.synchronize()
+            builds.append(dict(build_s=time.perf_counter() - t0,
+                               tier_searches=P.TIER_SEARCHES.count,
+                               plan_db=dict(engine.plan_db_stats),
+                               tiers=[dict(t.summary(), plans=sorted(
+                                   {r.name for r in t.plan_table.values()}))
+                                   for t in engine.tiers]))
+            if warm:
+                break
+            out.update(_govern(torch, K, P, engine, prompts, burst))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        del engine
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["cold"], out["warm"] = builds
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out["warm"]["tier_searches"] != 0 or out["cold"]["tier_searches"] != 1:
+        raise RuntimeError(f"governor: tier searches {out['cold']['tier_searches']} cold, "
+                           f"{out['warm']['tier_searches']} warm; expected 1 and 0")
+    if out["warm"]["tiers"] != out["cold"]["tiers"]:
+        raise RuntimeError("governor: the warm build's tiers differ from the cold build's")
+    log(f"governor on {card}: {cfg.n_layers} layers ({n_weights / 1e9:.3f} G weights, "
+        f"reckoned {out['reckoned_gb']:.1f} GB, peak {out['peak_gb']:.1f} GB); tiers "
+        + "; ".join(f"{t['name']} {t['plans']} MAE {t['max_certified_mae']:g}"
+                    for t in out["cold"]["tiers"])
+        + f"; build {out['cold']['build_s']:.1f} s cold ({out['cold']['tier_searches']} "
+        f"tier search), {out['warm']['build_s']:.1f} s warm (0 tier searches, plan db "
+        f"{out['warm']['plan_db']['hits']} hit); decode ms/step by set_tier: primary "
+        f"{out['set_tier']['primary']['decode_ms_per_step']:.2f}, narrow "
+        f"{out['set_tier']['narrow']['decode_ms_per_step']:.2f}; queue-depth swaps "
+        f"{out['queue']['history']}, decode ms/step there by tier {out['queue']['decode_ms']}")
+    return out
+
+
+def _govern(torch, K, P, engine, prompts, burst) -> dict:
+    """The two swaps on a governed engine (see ``serve_governor``)."""
+    engine.generate([prompts[0][:4]], max_new=2)  # warm-up request
+    controller, engine.governor = engine.governor, None
+    by_tier = {}
+    for tier in (1, 0):
+        engine.set_tier(tier)
+        name = engine.tiers[tier].name
+        ms = []
+        rids = [engine.submit(p, max_new=8, admit=False) for p in prompts]
+        while engine.active.any() or engine.scheduler.n_queued:
+            pure = not engine.scheduler.n_queued and not engine._prefilling.any()
+            t0 = time.perf_counter()
+            engine.step()
+            if pure:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        ms.sort()
+        by_tier[name] = dict(decode_ms_per_step=ms[len(ms) // 2], decode_ms_steps=ms,
+                             tokens=[engine.outputs[r] for r in rids])
+    engine.governor = controller
+    tiers, per_tier = [], {}
+    rids = [engine.submit(p, max_new=8, admit=False) for p in burst]
+    for _ in range(200):
+        if not (engine.active.any() or engine.scheduler.n_queued):
+            break
+        pure = not engine.scheduler.n_queued and not engine._prefilling.any()
+        t0 = time.perf_counter()
+        engine.step()
+        if pure:
+            per_tier.setdefault(engine.tiers[engine.active_tier].name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        tiers.append(engine.active_tier)
+    for _ in range(GOVERNOR["hold_steps"] + 1):  # calm observations recover the tier
+        engine.step()
+        tiers.append(engine.active_tier)
+    g = engine.stats()["governor"]
+    if [h[1:] for h in g["history"]] != [(0, 1), (1, 0)]:
+        raise RuntimeError(f"governor: queue-depth swaps {g['history']}, expected one "
+                           "down and one back")
+    if any(len(engine.outputs[r]) != 8 for r in rids):
+        raise RuntimeError("governor: a burst request did not complete")
+    return dict(set_tier=by_tier, queue=dict(
+        history=g["history"], tiers=tiers,
+        decode_ms={k: sorted(v)[len(v) // 2] for k, v in per_tier.items()}))
+
+
+def serve_replicas(torch, K, P, card: str) -> dict:
+    """``ReplicaFront`` over two int4_packed fixed-slot engines at
+    qwen1.5-110b's full width (phase 4's depth), six requests with steps
+    between some, each request's route printed; the routed tokens equal one
+    replica serving all six."""
+    cfg = P.dataclasses.replace(P.get_config("qwen1.5-110b"), n_layers=4)
+    params = P.T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 17, 30, 9, 24, 12)]
+    scfg = P.ServeConfig(n_slots=4, max_len=64, prefill_chunk=16, eos_token=-1,
+                         quant_mode="int4_packed", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    front = P.ReplicaFront(cfg, params, scfg, n_replicas=2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    grids = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        grids.append(front.submit(p, max_new=8))
+        if i % 2 == 1:
+            front.step()
+    while any(r.active.any() or r.scheduler.n_queued for r in front.replicas):
+        front.step()
+    serve_s = time.perf_counter() - t0
+    routes = [front.replica_of(g) for g in grids]
+    routed = [front.outputs[g] for g in grids]
+    single = list(front.replicas[0].generate(prompts, max_new=8).values())
+    if routed != single:
+        raise RuntimeError(f"replicas: routed tokens {routed} != one replica's {single}")
+    out = dict(routes=routes, build_s=build_s, serve_s=serve_s,
+               finished=front.stats()["finished"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for g, r in zip(grids, routes):
+        log(f"replicas on {card}: request {g} -> replica {r}")
+    log(f"replicas: 2 int4_packed engines built in {build_s:.1f} s, six requests served "
+        f"in {serve_s:.2f} s, routes {routes}; tokens equal one replica serving all six")
+    del front, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_cli(torch, P, card: str) -> dict:
+    """``python -m repro_torch.launch.serve`` at the smoke config on its
+    default device, the card: the continuous engine, the governor with a
+    deadline, two replicas (their routes printed); each run's last lines."""
+    import contextlib
+    import io
+
+    base = ["--arch", "qwen1.5-110b", "--smoke", "--requests", "4", "--max-new", "6"]
+    runs = {"continuous": ["--engine", "continuous", "--page-size", "8", "--n-pages", "12",
+                           "--quant", "int4_packed"],
+            "governor": ["--engine", "continuous", "--governor", "--quant", "dsp_tuned",
+                         "--deadline-ms", "60000"],
+            "replicas": ["--replicas", "2", "--quant", "int4_packed"]}
+    out = {}
+    for name, flags in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            P.serve.main(base + flags)
+        lines = buf.getvalue().splitlines()
+        out[name] = lines
+        for line in lines:
+            if "replica" in line or "pages:" in line or "governor" in line or "shed" in line:
+                log(f"cli {name} on {card}: {line}")
+    return out
+
+
+def agreement_continuous(torch, P, cfg, params, mode: str, table=None, prompts=None,
+                         max_len: int = 32) -> list:
+    """Continuous engine, kernel against plain version, at a smoke config:
+    two lanes, pages of 8, prefill chunks of 16 (two lanes of 16 rows: the
+    M > 16 kernels; decode the M <= 16 ones); greedy tokens identical, and
+    equal to the fixed-slot kernel engine's at the same chunk."""
+    prompts = prompts or [[5, 17, 33, 2, 9], list(range(40, 51)), [7, 8, 9]]
+    toks = []
+    for engine_cls, uk in ((P.ContinuousEngine, True), (P.ContinuousEngine, False),
+                           (P.Engine, True)):
+        eng = engine_cls(cfg, params, P.ServeConfig(
+            n_slots=2, max_len=max_len, prefill_chunk=16, max_new=6, quant_mode=mode,
+            page_size=8, device="cuda", use_kernel=uk), plan_table=table)
+        toks.append(eng.generate(prompts))
+        del eng
+    if not toks[0] == toks[1] == toks[2]:
+        raise RuntimeError(f"{cfg.name} {mode} continuous: kernel engine {toks[0]}, plain "
+                           f"engine {toks[1]}, fixed-slot engine {toks[2]}")
+    log(f"agreement {cfg.name} {mode} continuous: kernel and plain engines emit identical "
+        "tokens, the fixed-slot engine's")
+    return list(toks[0].values())
 
 # ---- phase 9: the plan search on the card ------------------------------------
 
@@ -1426,12 +1815,22 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import _repeat_kv
     from repro_torch.models.moe import HOST_READS
+    from repro_torch.launch import serve
     from repro_torch.models.registry import get_config
-    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import (
+        ContinuousEngine,
+        Engine,
+        GovernorConfig,
+        ReplicaFront,
+        ServeConfig,
+    )
+    from repro_torch.serving.governor import TIER_SEARCHES
     from repro_torch.tuning import DEFAULT_WIDTH_CANDIDATES, PROBES, autotune, tuner
 
     P = types.SimpleNamespace(dataclasses=dataclasses, ref=ref, T=T, Engine=Engine,
-                              ServeConfig=ServeConfig, get_config=get_config,
+                              ContinuousEngine=ContinuousEngine, ReplicaFront=ReplicaFront,
+                              GovernorConfig=GovernorConfig, TIER_SEARCHES=TIER_SEARCHES,
+                              serve=serve, ServeConfig=ServeConfig, get_config=get_config,
                               iter_packable_weights=iter_packable_weights,
                               fuse_projection_weights=fuse_projection_weights,
                               is_dsp_tuned_leaf=is_dsp_tuned_leaf,
@@ -1519,6 +1918,31 @@ def main(argv: list[str] | None = None) -> int:
     fam_out, fam_launches = serve_families(torch, K, P, card)
     log(f"families: {time.perf_counter() - t0:.1f} s")
 
+    # the continuous, governor, replica and CLI paths, each with its counts
+    # zeroed just before it and read just after
+    paths = {"continuous": lambda: serve_continuous(torch, K, P, card, serving_out),
+             "governor": lambda: serve_governor(torch, K, P, card),
+             "replicas": lambda: serve_replicas(torch, K, P, card),
+             "cli": lambda: serve_cli(torch, P, card)}
+    path_out, path_launches, path_s = {}, {}, {}
+    for name, run in paths.items():
+        zero_counts(K)
+        t0 = time.perf_counter()
+        path_out[name] = run()
+        path_launches[name] = kernel_counts(K)
+        path_s[name] = time.perf_counter() - t0
+        log(f"{name} path: {path_s[name]:.1f} s, launches {path_launches[name]}")
+    for kernel, mode in need.items():
+        if mode in CONT_MODES and path_out["continuous"][mode]["launches"][kernel] < 1:
+            raise RuntimeError(f"{kernel} never launched on the continuous path ({mode})")
+    for name, kernels in (("governor", MODE_KERNELS["dsp_tuned"]),
+                          ("replicas", MODE_KERNELS["int4_packed"])):
+        for kernel in kernels:
+            if path_launches[name][kernel] < 1:
+                raise RuntimeError(f"{kernel} never launched on the {name} path")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 5: kernel engine vs plain-version engine at the smoke configs;
     # prefill chunks of 4 rows x 2 slots run the M <= 16 kernels, of 16 the
     # M > 16 ones; dsp_mixed on one allocation handed to all four engines
@@ -1540,6 +1964,9 @@ def main(argv: list[str] | None = None) -> int:
                      if mode == "dsp_tuned" else None)
             agree[f"{arch} {mode}"] = agreement(torch, P, smoke, sparams, mode, table,
                                                 **served)
+            if mode in ("int4_packed", "dsp_tuned"):
+                agree[f"{arch} {mode} continuous"] = agreement_continuous(
+                    torch, P, smoke, sparams, mode, table, **served)
         del sparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -1612,10 +2039,12 @@ def main(argv: list[str] | None = None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + moe_launches[name]
-                         + sum(c[name] for c in fam_launches.values())),
+                         + sum(c[name] for c in fam_launches.values())
+                         + sum(c[name] for c in path_launches.values())),
             "launches_by_path": {"qwen1.5-110b": launches[name],
                                  "moonshot-v1-16b-a3b": moe_launches[name],
-                                 **{a: c[name] for a, c in fam_launches.items()}},
+                                 **{a: c[name] for a, c in fam_launches.items()},
+                                 **{a: c[name] for a, c in path_launches.items()}},
             "max_abs_err": max(c[2] for c in checks if c[0] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1657,7 +2086,7 @@ def main(argv: list[str] | None = None) -> int:
         json_path.write_text(json.dumps({
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": kernels, "timings": rows, "serving": serving_out, "moe": moe_out,
-            "families": fam_out,
+            "families": fam_out, **path_out, "path_seconds": path_s,
             "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
             "attention_checks": attn_checks,

@@ -1,7 +1,9 @@
-"""Serving CLI: batched requests through the fixed-slot engine.
+"""Serving CLI: batched requests through the slot or the paged engine.
 
   python -m repro_torch.launch.serve --arch qwen1.5-110b --smoke \\
       --quant dsp_tuned --plan-bits 4,4 --error-budget 0.5 --fuse all
+  python -m repro_torch.launch.serve --arch qwen1.5-110b --smoke \\
+      --engine continuous --page-size 8 --n-pages 12 --quant int4_packed
 
 ``--arch`` takes every architecture of the registry (``list_archs()``):
 the dense and moe families, xlstm-1.3b (ssm), jamba-v0.1-52b (hybrid),
@@ -19,7 +21,14 @@ widths within ``--mixed-budget``, and prints the allocation's summary.
 ``--plan-db DIR`` keeps the tuned tables and mixed allocations in a plan
 database, so that a restarted engine builds without searching.  ``--fuse mlp`` joins up|gate at engine build,
 ``--fuse all`` also q|k|v (quantized modes; each output column stays
-bit-identical).
+bit-identical).  ``--engine continuous`` serves through the continuous
+engine over a paged KV cache (``--page-size``, ``--n-pages``,
+``--watermark-pages``) and prints the pool's state at exit;
+``--deadline-ms`` sheds requests past it; ``--governor`` (dsp_tuned and
+dsp_mixed) holds a narrow exact weight tier beside the primary plans and
+swaps under load; ``--replicas N`` serves through N engines behind a
+join-shortest-queue front and prints each request's replica.  ``--tp``
+raises: tensor parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import numpy as np
 
 from ..models import transformer as T
 from ..models.registry import get_config, list_archs
-from ..serving import Engine, SamplingParams, ServeConfig
+from ..serving import ContinuousEngine, Engine, ReplicaFront, SamplingParams, ServeConfig
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -44,6 +53,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--engine", default="slot", choices=["slot", "continuous"],
+                    help="'slot': fixed slots over dense per-slot cache windows; "
+                         "'continuous': continuous batching over a paged KV cache")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="continuous: KV tokens per physical cache page")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="continuous: the page pool's size (default: the slot "
+                         "engine's windows' worth)")
+    ap.add_argument("--watermark-pages", type=int, default=None,
+                    help="continuous: free-page floor admission keeps "
+                         "(default: one growth page a lane)")
     ap.add_argument("--stream", action="store_true",
                     help="print (rid, token) pairs as they are emitted")
     ap.add_argument("--quant", default="native",
@@ -91,6 +111,17 @@ def main(argv: list[str] | None = None) -> None:
                     choices=["none", "mlp", "all"],
                     help="engine-build projection fusion for packed modes: "
                          "'mlp' fuses up|gate, 'all' also fuses q|k|v")
+    ap.add_argument("--governor", action="store_true",
+                    help="load-adaptive precision governor (dsp_tuned and "
+                         "dsp_mixed): hold a narrow exact weight tier beside the "
+                         "primary plans and swap to it when the queue backs up")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request wall-clock deadline from submission; "
+                         "requests past it are shed (finish reason 'deadline')")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engines behind a join-shortest-queue front")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (not ported yet: > 1 raises)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain versions)")
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -111,8 +142,34 @@ def main(argv: list[str] | None = None) -> None:
         autotune_plans=args.autotune_plans, plan_db=args.plan_db,
         temperature=args.temperature, top_k=args.top_k,
         top_p=args.top_p, seed=args.seed, device=args.device,
+        page_size=args.page_size, n_pages=args.n_pages,
+        watermark_pages=args.watermark_pages, governor=args.governor,
+        deadline_ms=args.deadline_ms, tp=args.tp,
     )
-    engine = Engine(cfg, params, serve_cfg)
+    engine_cls = ContinuousEngine if args.engine == "continuous" else Engine
+    rng = np.random.default_rng(0)
+    prompts = [
+        [int(t) for t in rng.integers(2, cfg.vocab_size, size=rng.integers(4, 10))]
+        for _ in range(args.requests)
+    ]
+    if args.replicas > 1:
+        if args.stream:
+            raise SystemExit("--replicas does not support --stream "
+                             "(per-replica token streams interleave)")
+        front = ReplicaFront(cfg, params, serve_cfg, n_replicas=args.replicas,
+                             engine_cls=engine_cls)
+        t0 = time.time()
+        outputs = front.generate(prompts, max_new=args.max_new)
+        dt = time.time() - t0
+        for grid, toks in sorted(outputs.items()):
+            print(f"[serve] request {grid} (replica {front.replica_of(grid)}): "
+                  f"{len(toks)} tokens -> {toks[:8]}...")
+        stats = front.stats()
+        print(f"[serve] {sum(len(v) for v in outputs.values())} tokens in {dt:.2f}s "
+              f"across {stats['n_replicas']} replicas (engine={args.engine}, "
+              f"quant={serve_cfg.quant_mode}, finished {stats['finished']})")
+        return
+    engine = engine_cls(cfg, params, serve_cfg)
     if engine.mixed_allocation is not None:
         alloc = engine.mixed_allocation
         print(f"[serve] mixed-precision allocation (budget {alloc.budget:.4g}, "
@@ -131,12 +188,11 @@ def main(argv: list[str] | None = None) -> None:
             }
             print("[serve] per-phase tuned kernel variants: "
                   + "; ".join(sorted(per_phase)))
+    if engine.tiers is not None:
+        print("[serve] governor tiers: " + "; ".join(
+            f"{i}:{t.name} (certified MAE <= {t.max_certified_mae:g})"
+            for i, t in enumerate(engine.tiers)))
     sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
-    rng = np.random.default_rng(0)
-    prompts = [
-        [int(t) for t in rng.integers(2, cfg.vocab_size, size=rng.integers(4, 10))]
-        for _ in range(args.requests)
-    ]
     t0 = time.time()
     if args.stream:
         rids = [engine.submit(p, max_new=args.max_new, sampling=sampling,
@@ -157,16 +213,32 @@ def main(argv: list[str] | None = None) -> None:
               f"-> {toks[:8]}...")
     stats = engine.stats()
     print(f"[serve] {total_tokens} tokens in {dt:.2f}s "
-          f"(device={engine.device}, quant={serve_cfg.quant_mode}, "
-          f"use_kernel={engine.use_kernel}, "
+          f"(engine={args.engine}, device={engine.device}, "
+          f"quant={serve_cfg.quant_mode}, use_kernel={engine.use_kernel}, "
           f"prefill {stats['prefill_tok_s']:.1f} tok/s, "
-          f"decode {stats['decode_tok_s']:.1f} tok/s)")
+          f"decode {stats['decode_tok_s']:.1f} tok/s, "
+          f"ttft p50 {stats['p50_ttft_s'] * 1e3:.0f}ms / "
+          f"p99 {stats['p99_ttft_s'] * 1e3:.0f}ms)")
+    if args.engine == "continuous":
+        print(f"[serve] pages: {stats['n_pages'] - stats['free_pages']}"
+              f"/{stats['n_pages']} in use at exit (page_size {stats['page_size']}, "
+              f"watermark {stats['watermark_pages']}, peak "
+              f"{stats['peak_pages_in_use']}, preempted {stats['preempted']}, "
+              f"copy-on-write copies {stats['cow_copies']})")
+    if args.deadline_ms is not None:
+        print(f"[serve] shed {stats['shed']} of "
+              f"{stats['finished'] + stats['cancelled']} requests at the "
+              f"{args.deadline_ms:.0f}ms deadline")
     if "plan_db" in stats:
         db = stats["plan_db"]
         warm = "warm" if db["hits"] else "cold"
         print(f"[serve] plan db {db['directory']}: {warm} build "
               f"({db['hits']} hit / {db['misses']} miss / "
               f"{db['stale']} stale, key {db['key'][:12]})")
+    if "governor" in stats:
+        g = stats["governor"]
+        print(f"[serve] governor: tier {g['tier']} ({g['tier_name']}) "
+              f"after {g['swaps']} swaps over {g['observations']} steps")
 
 
 if __name__ == "__main__":

@@ -4,12 +4,13 @@ Counterpart of the reference's ``repro.models.layers``: ``rmsnorm``,
 ``rope``, GQA ``attention`` (the no-cache branch, causal or not, chunked
 online softmax under ``ModelConfig.attention_chunk``; the dense-cache
 branch with per-row positions; the sliding window's causal window mask and
-its ring cache written at ``pos % window``; cross-attention from
-``kv_x``), the SwiGLU ``mlp`` and ``gelu_mlp``, each with the engine-build
-fused projections (``wqkv``, ``upgate``).  Every projection goes through
+its ring cache written at ``pos % window``; the paged branch of the
+continuous engine's cache; cross-attention from ``kv_x``), the SwiGLU
+``mlp`` and ``gelu_mlp``, each with the engine-build fused projections
+(``wqkv``, ``upgate``).  Every projection goes through
 :func:`core.packed_linear.apply_linear`.  Attention is plain PyTorch
-(einsum and softmax), as it is jnp in the reference; the paged branch is
-not ported yet and raises.
+(einsum and softmax, the paged branch's write and gather indexing), as it
+is jnp in the reference.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from .config import ModelConfig
 __all__ = [
     "rmsnorm", "rope", "attention", "mlp", "gelu_mlp", "init_linear",
     "init_rmsnorm", "init_attention", "init_mlp", "init_gelu_mlp",
-    "init_kv_cache",
+    "init_kv_cache", "init_paged_kv_cache",
 ]
 
 Params = dict[str, Any]
@@ -96,6 +97,7 @@ def attention(
     cache: Params | None = None,
     causal: bool = True,
     kv_x: torch.Tensor | None = None,
+    page_table: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """GQA attention.  ``cache=None``: the full sequence, causal (within
     the sliding window, if the config has one) or not.  With a dense
@@ -104,12 +106,14 @@ def attention(
     window`` in a sliding window's ring, which takes one position a call)
     and attends over the cache.  ``kv_x`` is cross-attention: K and V come
     from ``kv_x``, without rope, and fused ``wqkv`` is never used.
+    A paged ``cache`` ({"pages_k", "pages_v"}: (n_pages, page_size, n_kv,
+    hd) pools) needs ``page_table`` (B, max_blocks), each lane's logical
+    blocks mapped to physical pages; entries equal to ``n_pages`` mark
+    unallocated blocks and masked lanes (:func:`_paged_write_gather`).
     Returns ``(out, new_cache)``; the cache passed in is not modified (the
     engine merges rows, as the reference's)."""
-    if cache is not None and "pages_k" in cache:
-        raise NotImplementedError(
-            "paged attention is not ported yet (ROADMAP queue 9)"
-        )
+    if cache is not None and "pages_k" in cache and page_table is None:
+        raise ValueError("a paged cache needs a page_table")
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     spec = cfg.quant
@@ -133,7 +137,11 @@ def attention(
         k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and "pages_k" in cache:
+        k, v, new_cache, valid = _paged_write_gather(cache, page_table, k, v, cfg,
+                                                     positions)
+        mask = torch.where(valid[:, None, :, :], 0.0, NEG_INF)
+    elif cache is not None:
         window = cache["k"].shape[1]
         if positions.dim() == 2:
             row_pos = positions[:, 0]
@@ -187,6 +195,64 @@ def attention(
     return apply_linear(params["wo"], out, spec), new_cache
 
 
+def _paged_write_gather(cache: Params, page_table: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The paged branch: write this call's K/V through the lanes' page
+    table, gather each lane's logical window back, and the validity mask.
+
+    Position ``p`` of a lane sits in logical block ``slot // page_size`` at
+    offset ``slot % page_size`` (``slot = p % window`` in a sliding
+    window's ring, which the engines fill one position a call; else ``p``);
+    positions past the table's ``max_blocks`` go to the sentinel.  JAX
+    drops scatter writes to the sentinel page ``n_pages`` and clamps the
+    gather there; torch would raise on both, so the port does each by
+    hand: the writes go through the pools extended by one scratch page at
+    index ``n_pages``, which is then cut off, and the gather clamps the
+    table to ``n_pages - 1``.  The mask discards what a sentinel entry
+    reads (its ``NEG_INF`` scores give probability 0, and the pools hold
+    finite K/V only: they start as zeros).  Returns ``(k, v, new_cache,
+    valid)``: k and v (B, window, n_kv, hd) with ``window = max_blocks *
+    page_size``, ``valid`` (B, S, window)."""
+    pages_k, pages_v = cache["pages_k"], cache["pages_v"]
+    n_pages, ps = pages_k.shape[0], pages_k.shape[1]
+    b, s = k.shape[0], k.shape[1]
+    max_blocks = page_table.shape[1]
+    dev = k.device
+    if positions.dim() == 2:
+        row_pos = positions[:, 0]
+    else:
+        row_pos = positions.reshape(-1)[:1].expand(b)
+    pos = row_pos[:, None] + torch.arange(s, device=dev)[None]       # (B, S)
+    slot = pos % cfg.sliding_window if cfg.sliding_window else pos
+    blk = slot // ps
+    page = page_table.long().gather(1, blk.clamp(0, max_blocks - 1))
+    # positions past the logical window must not clamp into a live block
+    page = torch.where(blk < max_blocks, page, n_pages)
+    off = slot % ps
+    scratch = (1,) + tuple(pages_k.shape[1:])
+    ext_k = torch.cat([pages_k, pages_k.new_zeros(scratch)])
+    ext_v = torch.cat([pages_v, pages_v.new_zeros(scratch)])
+    ext_k[page, off] = k.to(ext_k.dtype)
+    ext_v[page, off] = v.to(ext_v.dtype)
+    pages_k, pages_v = ext_k[:n_pages], ext_v[:n_pages]
+    window = max_blocks * ps
+    table = page_table.long().clamp(max=n_pages - 1)
+    k_all = pages_k[table].reshape(b, window, *pages_k.shape[2:])
+    v_all = pages_v[table].reshape(b, window, *pages_v.shape[2:])
+    cache_positions = torch.arange(window, device=dev)
+    if cfg.sliding_window:
+        # every written ring slot is inside the window; gathered slots past
+        # the ring are never written
+        ring = cfg.sliding_window
+        valid = (((cache_positions[None, None, :] <= slot[:, :, None])
+                  | (pos[:, :, None] >= ring))
+                 & (cache_positions[None, None, :] < ring))
+    else:
+        valid = cache_positions[None, None, :] <= pos[:, :, None]
+    new_cache = {"pages_k": pages_k, "pages_v": pages_v}
+    return k_all, v_all, new_cache, valid
+
+
 def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               chunk: int, window: int | None = None) -> torch.Tensor:
     """Online-softmax causal attention over key chunks, the reference's
@@ -227,6 +293,16 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (batch, window, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                        dtype: torch.dtype, device: torch.device) -> Params:
+    """One attention layer's physical page pools, zeros: every serving
+    lane's K/V lives in fixed-size pages mapped through a per-lane page
+    table (``serving.paged_cache.PageAllocator`` owns the mapping)."""
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    return {"pages_k": torch.zeros(shape, dtype=dtype, device=device),
+            "pages_v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,

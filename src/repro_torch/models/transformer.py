@@ -24,7 +24,9 @@ Family -> group:
           are prepended to the sequence
 
 Recurrent state (sLSTM, mLSTM, Mamba) is f32 in the cache whatever the
-compute dtype; the ssm family's cache holds no KV.
+compute dtype; the ssm family's cache holds no KV.  The continuous
+engine's paged cache (:func:`init_paged_cache`) holds page pools in place
+of the dense K/V, read and written through ``forward``'s ``page_table``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from .layers import (
     init_kv_cache,
     init_linear,
     init_mlp,
+    init_paged_kv_cache,
     init_rmsnorm,
     mlp,
     rmsnorm,
@@ -60,8 +63,8 @@ from .ssm import (
     slstm,
 )
 
-__all__ = ["init_params", "init_cache", "forward", "encode", "compute_dtype",
-           "Model"]
+__all__ = ["init_params", "init_cache", "init_paged_cache", "forward", "encode",
+           "compute_dtype", "Model"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _F32 = torch.float32
@@ -175,6 +178,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return [group() for _ in range(cfg.n_groups)]
 
 
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     dtype: torch.dtype | None = None, batch: int | None = None,
+                     device: str | torch.device = "cuda") -> list[Params]:
+    """Per-group paged decode cache of the continuous engine: each attention
+    layer's K/V in ``(n_pages, page_size, n_kv, hd)`` pools of ``dtype``
+    (None: the compute dtype), written and read through a per-lane page
+    table (``serving.paged_cache``); a sliding window's pools hold its ring
+    slots.  Recurrent state (ssm; hybrid's Mamba) has no positions to page:
+    it is per-lane state with the lane axis first, f32, as in
+    :func:`init_cache`, so ``batch`` (the lanes) is required for those
+    families; the hybrid tree holds both kinds of leaf."""
+    dev = resolve_device(device)
+    dtype = compute_dtype(cfg) if dtype is None else dtype
+    fam, g = cfg.family, cfg.group_size
+    if fam in ("ssm", "hybrid") and batch is None:
+        raise ValueError(
+            f"family {fam!r} keeps per-lane recurrent state in its paged "
+            "cache: pass batch=<n_lanes>"
+        )
+    if fam == "ssm":
+        # no KV anywhere: the paged cache is the per-lane state alone
+        return init_cache(cfg, batch, 1, dtype, dev)
+    if fam not in ("dense", "vlm", "moe", "encdec", "hybrid"):
+        raise ValueError(f"unknown family {fam!r}")
+
+    def group() -> Params:
+        kv = {"attn": init_paged_kv_cache(cfg, n_pages, page_size, dtype, dev)}
+        if fam == "hybrid":
+            kv["mamba"] = [init_mamba_cache(cfg, batch, _F32, dev) for _ in range(g - 1)]
+        return kv
+
+    return [group() for _ in range(cfg.n_groups)]
+
+
 def _slot_norm(ln: Params, i: int) -> Params:
     return {"scale": ln["scale"][i]}
 
@@ -182,15 +219,18 @@ def _slot_norm(ln: Params, i: int) -> Params:
 def _apply_group(gp: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, cache: Params | None,
                  encoder_out: torch.Tensor | None, causal: bool = True,
-                 valid: torch.Tensor | None = None):
+                 valid: torch.Tensor | None = None,
+                 page_table: torch.Tensor | None = None):
     """One group: returns ``(x, new_cache, aux_loss)``.  ``valid`` (B, S)
     bool gates the recurrent mixers' state and makes MoE dispatch dropless
-    (the serving engine's per-row mask)."""
+    (the serving engine's per-row mask); ``page_table`` routes the
+    attention cache through a paged cache."""
     fam, spec, eps = cfg.family, cfg.quant, cfg.norm_eps
     aux = torch.zeros((), dtype=_F32, device=x.device)
 
     def attn(p, h, kv):
-        return attention(p, h, cfg, positions, cache=kv, causal=causal)
+        return attention(p, h, cfg, positions, cache=kv, causal=causal,
+                         page_table=page_table)
 
     if fam in ("dense", "vlm") or (fam == "encdec" and encoder_out is None
                                    and cache is None and not causal):
@@ -292,6 +332,7 @@ def forward(
     logits_dtype: torch.dtype = torch.float32,
     return_hidden: bool = False,
     valid: torch.Tensor | None = None,
+    page_table: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list[Params] | None, torch.Tensor]:
     """Token ids -> logits.  Returns ``(logits, new_cache, aux_loss)``: the
     MoE layers' load-balance losses summed (zero without MoE, as the
@@ -305,7 +346,9 @@ def forward(
     ``valid`` (B, S) bool is the serving engine's per-row mask: recurrent
     state advances only on valid tokens, and MoE layers dispatch dropless
     and route masked tokens to no expert (``models.moe``); ``None`` keeps
-    the chunked scans and the capacity path.
+    the chunked scans and the capacity path.  ``page_table`` (B,
+    max_blocks) routes K/V writes and reads through a paged cache
+    (:func:`init_paged_cache`) instead of per-row dense windows.
     """
     x = params["embed"]["w"][tokens].to(compute_dtype(cfg))
     if patch_embeds is not None:
@@ -319,7 +362,7 @@ def forward(
     for i, gp in enumerate(params["groups"]):
         x, nc, a = _apply_group(gp, x, cfg, positions,
                                 None if cache is None else cache[i], encoder_out,
-                                valid=valid)
+                                valid=valid, page_table=page_table)
         aux = aux + a
         if new_cache is not None:
             new_cache.append(nc)

@@ -1,8 +1,10 @@
-"""Fixed-slot batched serving engine.
+"""Serving engines: the fixed-slot ``Engine`` and the configuration both share.
 
-Counterpart of the reference's ``repro.serving.engine.Engine``: a fixed
-pool of ``n_slots`` sequences shares one decode cache; the scheduler admits
-queued requests into free slots and finished sequences free them.
+Counterpart of the reference's ``repro.serving.engine``.  In ``Engine`` a
+fixed pool of ``n_slots`` sequences shares one decode cache; the scheduler
+admits queued requests into free slots and finished sequences free them.
+``ContinuousEngine`` (``serving.continuous``, re-exported here) batches
+continuously over a paged KV cache.
 
 * **batched chunked prefill** — admitted prompts are padded onto a shared
   ``(n_slots, prefill_chunk)`` grid and every chunk is one forward call;
@@ -49,6 +51,13 @@ the ``dsp_tuned`` search (a path absent from it serves
 goes through one code path (``_finish_slot``): EOS, per-request
 ``max_new`` and the cache capacity; :meth:`Engine.cancel` aborts a request
 from outside.
+
+Load policy, in both engines: a request past its deadline (``deadline_ms``,
+engine-wide or per request) is shed at the next step boundary with finish
+reason ``"deadline"``; with ``governor`` the engine holds prebuilt weight
+tiers (``serving.governor``) and swaps them at a step boundary under load
+(:meth:`Engine.set_tier` swaps by hand).  Each step sheds, governs, admits,
+then decodes.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
+from typing import Any
 
 import numpy as np
 import torch
@@ -83,15 +93,10 @@ from ..tuning.tuner import plan_report
 from .sampling import SamplingParams, row_seed, sample_tokens
 from .scheduler import Scheduler
 
-__all__ = ["ServeConfig", "Engine"]
+__all__ = ["ServeConfig", "Engine", "ContinuousEngine"]
 
 # reference knobs of later slices: rejected by name while unported
 _LATER = {
-    "governor": "ROADMAP queue 9 (load policy)",
-    "deadline_ms": "ROADMAP queue 9 (load policy)",
-    "page_size": "ROADMAP queue 9 (paged continuous serving)",
-    "n_pages": "ROADMAP queue 9 (paged continuous serving)",
-    "watermark_pages": "ROADMAP queue 9 (paged continuous serving)",
     "tp": "ROADMAP queue 10 (tensor parallelism)",
 }
 
@@ -107,10 +112,15 @@ class ServeConfig:
     ``plan_bits="auto"`` promotes ``dsp_tuned`` to ``dsp_mixed``, whose
     sensitivity pass reads ``width_candidates`` (None: the four default
     pairs), ``calib_tokens`` and ``seed`` and whose allocator spends
-    ``mixed_budget``; ``plan_db`` names a plan-database directory.  The
-    reference's governor, tensor parallelism, deadlines and paged-cache
-    settings are fields so that a reference configuration reads the same;
-    setting one raises, naming the roadmap queue that ports it.
+    ``mixed_budget``; ``plan_db`` names a plan-database directory.
+    ``page_size``, ``n_pages`` (None: ``n_slots`` lanes' worth of pages)
+    and ``watermark_pages`` (None: ``n_slots``, one growth page a lane)
+    size the continuous engine's paged cache; the fixed-slot ``Engine``
+    ignores them.  ``deadline_ms`` sheds requests past it; ``governor``
+    (True, or a ``serving.governor.GovernorConfig``) holds degraded weight
+    tiers, under ``dsp_tuned`` and ``dsp_mixed`` only.  The reference's
+    tensor parallelism is a field so that a reference configuration reads
+    the same; setting it raises, naming the roadmap queue that ports it.
     """
 
     n_slots: int = 8
@@ -142,14 +152,26 @@ class ServeConfig:
     top_p: float = 1.0
     seed: int = 0
     device: str = "cuda"
-    governor: bool = False
-    deadline_ms: float | None = None
-    page_size: int | None = None
+    # paged KV cache of the ContinuousEngine: KV tokens a page, the pool's
+    # pages and the free-page floor admission keeps
+    page_size: int = 16
     n_pages: int | None = None
     watermark_pages: int | None = None
+    # per-request wall-clock deadline (ms from submit): shed past it
+    deadline_ms: float | None = None
+    # load-adaptive precision governor: False, True or a GovernorConfig
+    governor: Any = False
     tp: int = 1
 
     def __post_init__(self) -> None:
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.n_pages is not None and self.n_pages < 1:
+            raise ValueError(f"n_pages must be >= 1, got {self.n_pages}")
+        if self.watermark_pages is not None and self.watermark_pages < 0:
+            raise ValueError(
+                f"watermark_pages must be >= 0, got {self.watermark_pages}"
+            )
         for name, queue in _LATER.items():
             default = ServeConfig.__dataclass_fields__[name].default
             if getattr(self, name) != default:
@@ -190,6 +212,17 @@ class ServeConfig:
             raise ValueError(
                 f"fuse_projections {self.fuse_projections!r} not in "
                 "(True, False, 'none', 'mlp', 'all')"
+            )
+        if self.deadline_ms is not None and self.deadline_ms <= 0:
+            raise ValueError(
+                f"deadline_ms must be > 0, got {self.deadline_ms}"
+            )
+        if self.governor and self.quant_mode not in ("dsp_tuned", "dsp_mixed"):
+            # governor tiers are per-layer DspTunedLeaf plan tables; the
+            # other modes have no plan machinery to re-tier through
+            raise ValueError(
+                "governor needs quant_mode dsp_tuned or dsp_mixed, got "
+                f"{self.quant_mode!r}"
             )
         if self.n_slots < 1 or self.max_len < 1 or self.prefill_chunk < 1:
             raise ValueError("n_slots, max_len and prefill_chunk must be >= 1")
@@ -268,6 +301,16 @@ def _mixed_allocation(cfg: ModelConfig, params, scfg: ServeConfig, use_kernel: b
     return allocation, None if db is None else _db_stats(db, key)
 
 
+def _float_tree(params, scfg: ServeConfig):
+    """The float tree a quantized mode quantizes: ``params`` with
+    same-input projections joined as ``fuse_projections`` asks."""
+    fuse = scfg.fuse_projections
+    if scfg.quant_mode in ("native", "none") or fuse in (False, "none"):
+        return params
+    return fuse_projection_weights(params, fuse_attn=fuse in (True, "all"),
+                                   fuse_mlp=True)
+
+
 def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
                             use_kernel: bool, device: torch.device, plan_table,
                             mixed_allocation=None):
@@ -296,10 +339,7 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
             cfg.quant, mode=linear_mode, use_kernel=use_kernel
         ),
     )
-    fuse = scfg.fuse_projections
-    if fuse not in (False, "none"):
-        params = fuse_projection_weights(params, fuse_attn=fuse in (True, "all"),
-                                         fuse_mlp=True)
+    params = _float_tree(params, scfg)
     table, db_stats = {}, None
     if scfg.quant_mode == "dsp_tuned":
         table, db_stats = _tuned_plans(cfg, params, scfg, use_kernel, device,
@@ -313,6 +353,50 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
         use_kernel=use_kernel,
     )
     return cfg, params, table, mixed_allocation, db_stats
+
+
+def _setup_governor(engine, cfg: ModelConfig, float_params, scfg: ServeConfig) -> None:
+    """Attach the load-adaptive precision governor (both engines): build
+    the tier ladder from the post-fusion float weights and hold it
+    quantized, ready to swap at a step boundary.  With a plan database the
+    tier plan tables are stored under the engine's ``plan_key`` entry
+    (a ``"tiers"`` record, fingerprinted by the governor settings that
+    shape them, merged beside the ``"tuned"``/``"mixed"`` record), so a
+    warm governed build runs no tier search; weights are never stored."""
+    engine.governor = None
+    engine.tiers = None
+    engine.active_tier = 0
+    if not scfg.governor:
+        return
+    from .governor import Governor, GovernorConfig, build_tiers
+
+    gcfg = scfg.governor if isinstance(scfg.governor, GovernorConfig) else GovernorConfig()
+    fingerprint = {
+        "narrow_bits": list(gcfg.narrow_bits),
+        "emergency_tier": gcfg.emergency_tier,
+        "emergency_max_mae": gcfg.emergency_max_mae,
+        "use_kernel": engine.use_kernel,
+    }
+    db = entry = tables = None
+    if scfg.plan_db and engine.plan_db_stats:
+        db = PlanDB(scfg.plan_db)
+        entry = db.get(engine.plan_db_stats["key"])
+        stored = (entry or {}).get("tiers")
+        if stored and stored.get("fingerprint") == fingerprint:
+            tables = {name: {p: report_from_json(r) for p, r in tbl.items()}
+                      for name, tbl in stored["tables"].items()}
+    engine.tiers = build_tiers(cfg, float_params, scfg, engine.params,
+                               engine.plan_table, gcfg, tables=tables)
+    if db is not None and tables is None:
+        # merge-write the fresh ladders beside the plan entry the build wrote
+        payload = dict(entry or {})
+        payload["tiers"] = {
+            "fingerprint": fingerprint,
+            "tables": {t.name: {p: report_to_json(r) for p, r in t.plan_table.items()}
+                       for t in engine.tiers if t.name != "primary"},
+        }
+        db.put(engine.plan_db_stats["key"], payload)
+    engine.governor = Governor(gcfg, len(engine.tiers))
 
 
 def _rows(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -331,24 +415,15 @@ def _map_cache(fn, *trees):
     return fn(*trees)
 
 
-class Engine:
-    """Fixed-slot batched serving engine.
+class _ServingEngine:
+    """What both engines share: the build (device, weights onto the mode,
+    the governor), submission, cancellation, the load policy (deadline
+    sheds, tier swaps), sampling, the lm_head and the read-back surface.
+    Each engine brings its own cache, ``_admit``, ``_release_rid``,
+    ``step`` and ``_step_budget``."""
 
-    :meth:`submit` queues a prompt (``admit=True`` pulls it into a free slot
-    at once); :meth:`step` admits what fits, then decodes one token per
-    active slot and returns the rids finished this step; :meth:`cancel`
-    aborts a queued or running request; tokens are read back from
-    :attr:`outputs` or :meth:`drain_stream`, counters via :meth:`stats`;
-    :meth:`generate` wraps the loop for batch callers.
-    ``params`` must already lie on ``serve_cfg.device``.
-    ``mixed_allocation`` (a ``tuning.MixedAllocation``) skips the
-    ``dsp_mixed`` sensitivity pass and serves the given per-path plans; its
-    paths must match this engine's tree (same fusion settings).
-    """
-
-    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 plan_table: dict[str, PackedDotSpec | PlanReport] | None = None,
-                 mixed_allocation: MixedAllocation | None = None):
+    def _build(self, cfg: ModelConfig, params, serve_cfg: ServeConfig, plan_table,
+               mixed_allocation) -> None:
         self.device = resolve_device(serve_cfg.device)
         use_kernel = (self.device.type == "cuda" if serve_cfg.use_kernel is None
                       else serve_cfg.use_kernel)
@@ -360,29 +435,26 @@ class Engine:
             raise ValueError(f"params lie on {embed.device}, the engine serves "
                              f"on {self.device}")
         self.use_kernel = use_kernel
-        (cfg, params, self.plan_table, self.mixed_allocation,
+        (cfg, quantized, self.plan_table, self.mixed_allocation,
          self.plan_db_stats) = _prepare_serving_params(
             cfg, params, serve_cfg, use_kernel, self.device, plan_table,
             mixed_allocation,
         )
         self.cfg = cfg
-        self.params = params
+        self.params = quantized
         self.scfg = serve_cfg
+        _setup_governor(self, cfg, _float_tree(params, serve_cfg) if serve_cfg.governor
+                        else None, serve_cfg)
         b = serve_cfg.n_slots
         # a sliding window's ring cache takes one position a call: a chunk
         # landing in the ring would overwrite slots that earlier queries of
         # the chunk still read, so sliding windows prefill one token a chunk,
-        # as the reference's engine does
+        # as the reference's engines do
         self._chunk = 1 if cfg.sliding_window else max(
             1, min(serve_cfg.prefill_chunk, serve_cfg.max_len))
-        # the prefill grid is padded to whole chunks: allocate the cache on
-        # the same grid so the last chunk's writes never clamp
-        window = -(-serve_cfg.max_len // self._chunk) * self._chunk
-        self.cache = T.init_cache(cfg, b, window, device=self.device)
         self.positions = np.zeros(b, np.int64)
         self.active = np.zeros(b, bool)
         self.last_token = np.zeros(b, np.int64)
-        self._slot_rid = np.full(b, -1, np.int64)
         self._temperature = np.zeros(b, np.float32)
         self._top_k = np.zeros(b, np.int64)
         self._top_p = np.ones(b, np.float32)
@@ -393,14 +465,173 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _sample(self, logits: torch.Tensor, positions: np.ndarray) -> np.ndarray:
+    def _sample(self, logits: torch.Tensor, positions: np.ndarray,
+                row_rids: np.ndarray) -> np.ndarray:
+        """One token a row; a sampled row draws from the generator of
+        (seed, rid, position), so a request's stream depends on nothing
+        else (a preempted request resumes it exactly)."""
         seeds = [row_seed(self.scfg.seed, int(rid), int(pos)) if t > 0 and rid >= 0
                  else 0
-                 for rid, pos, t in zip(self._slot_rid, positions, self._temperature)]
+                 for rid, pos, t in zip(row_rids, positions, self._temperature)]
         return sample_tokens(
             logits, seeds, self._tensor(self._temperature),
             self._tensor(self._top_k), self._tensor(self._top_p),
         ).cpu().numpy()
+
+    def _lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(n_slots, d) hidden -> (n_slots, V) f32 logits (``T.forward``'s head)."""
+        if self.cfg.tie_embeddings:
+            return hidden.to(torch.float32) @ self.params["embed"]["w"].T.to(torch.float32)
+        from ..core.packed_linear import apply_linear
+
+        return apply_linear(self.params["lm_head"], hidden, self.cfg.quant).to(
+            torch.float32)
+
+    def _set_sampling(self, row: int, req) -> None:
+        self._temperature[row] = req.sampling.temperature
+        self._top_k[row] = req.sampling.top_k
+        self._top_p[row] = req.sampling.top_p
+
+    # ---- request lifecycle ----------------------------------------------
+    def submit(self, prompt: list[int], max_new: int | None = None,
+               sampling: SamplingParams | None = None,
+               admit: bool = True, deadline_ms: float | None = None) -> int:
+        """Enqueue a request; it is admitted as soon as there is room.
+        ``admit=False`` defers admission to the next :meth:`step` so that a
+        burst of submissions shares one batched prefill.  ``deadline_ms``
+        overrides ``ServeConfig.deadline_ms`` for this request (wall clock
+        from submission; a request unfinished past it is shed with finish
+        reason ``"deadline"``).  Returns the rid."""
+        if len(prompt) > self.scfg.max_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} > max_len ({self.scfg.max_len})"
+            )
+        if max_new is None:
+            max_new = self.scfg.max_new
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if sampling is None:
+            sampling = SamplingParams(
+                self.scfg.temperature, self.scfg.top_k, self.scfg.top_p
+            )
+        if deadline_ms is None:
+            deadline_ms = self.scfg.deadline_ms
+        rid = self.scheduler.submit(
+            prompt, max_new, sampling,
+            deadline_s=None if deadline_ms is None else deadline_ms / 1e3,
+        )
+        if admit:
+            self._admit()
+        return rid
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> None:
+        """Abort an unfinished request at once: a queued rid leaves the
+        queue without admission, a running rid frees its room for the next
+        admission.  Tokens emitted before stay in :attr:`outputs`."""
+        if not self.scheduler.cancel(rid, reason):
+            self._release_rid(rid)
+
+    def _shed_expired(self) -> list[int]:
+        """Cancel every request past its deadline (finish reason
+        ``"deadline"``): queued ones never take room, running ones free it
+        at this step boundary."""
+        shed = []
+        for rid in self.scheduler.expired():
+            if not self.scheduler.cancel(rid, "deadline"):
+                self._release_rid(rid)
+            shed.append(rid)
+        return shed
+
+    def set_tier(self, tier: int) -> None:
+        """Swap the active precision tier at a step boundary: weights and
+        plan table repoint; the cache, positions and sampling state stay."""
+        if self.tiers is None:
+            raise RuntimeError(
+                "engine was built without a governor (ServeConfig.governor)"
+            )
+        if not 0 <= tier < len(self.tiers):
+            raise ValueError(f"tier {tier} out of range [0, {len(self.tiers)})")
+        if tier == self.active_tier:
+            return
+        t = self.tiers[tier]
+        self.params = t.params
+        self.plan_table = t.plan_table
+        self.active_tier = tier
+
+    def _govern(self, slow_step_ms: float | None = None) -> None:
+        if self.governor is None:
+            return
+        target = self.governor.observe(self.scheduler.n_queued, slow_step_ms=slow_step_ms)
+        if target != self.active_tier:
+            self.set_tier(target)
+
+    def generate(self, prompts: list[list[int]], max_new: int | None = None,
+                 sampling: SamplingParams | None = None) -> dict[int, list[int]]:
+        """Drive a batch of prompts to completion."""
+        rids = [self.submit(p, max_new=max_new, sampling=sampling, admit=False)
+                for p in prompts]
+        per_req = max_new if max_new is not None else self.scfg.max_new
+        for _ in range(self._step_budget(prompts, per_req)):
+            if not (self.active.any() or self.scheduler.n_queued):
+                break
+            self.step()
+        if self.active.any() or self.scheduler.n_queued:
+            raise RuntimeError("generate() exceeded its step budget")
+        return {r: list(self.scheduler.requests[r].tokens) for r in rids}
+
+    # ---- introspection --------------------------------------------------
+    @property
+    def outputs(self) -> dict[int, list[int]]:
+        """rid -> tokens emitted so far, for every request that produced
+        any (finished, running, cancelled or preempted)."""
+        return {r.rid: r.tokens for r in self.scheduler.requests.values()
+                if r.tokens}
+
+    def drain_stream(self) -> list[tuple[int, int]]:
+        """Pop every ``(rid, token)`` emitted since the last drain."""
+        out = list(self._stream)
+        self._stream.clear()
+        return out
+
+    def stats(self) -> dict:
+        """Scheduler counters: queue depth, per-phase tok/s, TTFT/latency,
+        sheds; with a governor its swaps and the active tier's name
+        (``"governor"``); with a plan database its consultation
+        (``"plan_db"``: hits, misses, stale, the key and the directory)."""
+        s = self.scheduler.stats()
+        if self.governor is not None:
+            s["governor"] = dict(self.governor.stats(),
+                                 tier_name=self.tiers[self.active_tier].name)
+        if self.plan_db_stats is not None:
+            s["plan_db"] = dict(self.plan_db_stats)
+        return s
+
+
+class Engine(_ServingEngine):
+    """Fixed-slot batched serving engine.
+
+    :meth:`submit` queues a prompt (``admit=True`` pulls it into a free slot
+    at once); :meth:`step` sheds expired requests, lets the governor
+    re-tier, admits what fits, then decodes one token per active slot and
+    returns the rids finished this step; :meth:`cancel` aborts a queued or
+    running request; tokens are read back from :attr:`outputs` or
+    :meth:`drain_stream`, counters via :meth:`stats`; :meth:`generate`
+    wraps the loop for batch callers.
+    ``params`` must already lie on ``serve_cfg.device``.
+    ``mixed_allocation`` (a ``tuning.MixedAllocation``) skips the
+    ``dsp_mixed`` sensitivity pass and serves the given per-path plans; its
+    paths must match this engine's tree (same fusion settings).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
+                 plan_table: dict[str, PackedDotSpec | PlanReport] | None = None,
+                 mixed_allocation: MixedAllocation | None = None):
+        self._build(cfg, params, serve_cfg, plan_table, mixed_allocation)
+        # the prefill grid is padded to whole chunks: allocate the cache on
+        # the same grid so the last chunk's writes never clamp
+        window = -(-serve_cfg.max_len // self._chunk) * self._chunk
+        self.cache = T.init_cache(self.cfg, serve_cfg.n_slots, window, device=self.device)
+        self._slot_rid = np.full(serve_cfg.n_slots, -1, np.int64)
 
     @staticmethod
     def _merge(cache, new_cache, row_mask: torch.Tensor):
@@ -429,39 +660,7 @@ class Engine:
                                   row_hidden.to(last_hidden.dtype), last_hidden)
         return cache, last_hidden
 
-    def _lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
-        """(n_slots, d) hidden -> (n_slots, V) f32 logits (``T.forward``'s head)."""
-        if self.cfg.tie_embeddings:
-            return hidden.to(torch.float32) @ self.params["embed"]["w"].T.to(torch.float32)
-        from ..core.packed_linear import apply_linear
-
-        return apply_linear(self.params["lm_head"], hidden, self.cfg.quant).to(
-            torch.float32)
-
     # ---- request lifecycle ----------------------------------------------
-    def submit(self, prompt: list[int], max_new: int | None = None,
-               sampling: SamplingParams | None = None,
-               admit: bool = True) -> int:
-        """Enqueue a request; it is admitted as soon as a slot frees up.
-        ``admit=False`` defers admission to the next :meth:`step` so that a
-        burst of submissions shares one batched prefill.  Returns the rid."""
-        if len(prompt) > self.scfg.max_len:
-            raise ValueError(
-                f"prompt length {len(prompt)} > max_len ({self.scfg.max_len})"
-            )
-        if max_new is None:
-            max_new = self.scfg.max_new
-        if max_new < 1:
-            raise ValueError(f"max_new must be >= 1, got {max_new}")
-        if sampling is None:
-            sampling = SamplingParams(
-                self.scfg.temperature, self.scfg.top_k, self.scfg.top_p
-            )
-        rid = self.scheduler.submit(prompt, max_new, sampling)
-        if admit:
-            self._admit()
-        return rid
-
     @torch.inference_mode()
     def _admit(self) -> list[int]:
         """Move queued requests into free slots: batched chunked prefill and
@@ -485,9 +684,7 @@ class Engine:
             self.positions[slot] = ln
             self.active[slot] = True
             self._slot_rid[slot] = req.rid
-            self._temperature[slot] = req.sampling.temperature
-            self._top_k[slot] = req.sampling.top_k
-            self._top_p[slot] = req.sampling.top_p
+            self._set_sampling(slot, req)
 
         # a fresh request must not see the previous occupant's KV or
         # recurrent state: its rows of every cache leaf are zeroed
@@ -511,7 +708,7 @@ class Engine:
                     torch.cuda.synchronize(self.device)
                 self.scheduler.note_prefill_done(own_done)
         self.cache = cache
-        first = self._sample(self._lm_head(last_hidden), last_idx)
+        first = self._sample(self._lm_head(last_hidden), last_idx, self._slot_rid)
         n_prompt_tokens = sum(len(r.prompt) for r in admitted)
         self.scheduler.note_prefill(n_prompt_tokens, time.monotonic() - t0)
         finished = []
@@ -552,17 +749,13 @@ class Engine:
             self.active[slot] = False
             self._slot_rid[slot] = -1
 
-    def cancel(self, rid: int, reason: str = "cancelled") -> None:
-        """Abort an unfinished request at once: a queued rid leaves the
-        queue without admission, a running rid's slot frees for the next
-        admission.  Tokens emitted before stay in :attr:`outputs`."""
-        if not self.scheduler.cancel(rid, reason):
-            self._release_rid(rid)
-
     @torch.inference_mode()
     def step(self) -> list[int]:
-        """Admit what fits, then advance every active slot one token.
-        Returns the rids that finished this step."""
+        """Shed expired requests, let the governor re-tier, admit what
+        fits, then advance every active slot one token.  Returns the rids
+        that finished this step."""
+        self._shed_expired()
+        self._govern()
         finished = self._admit()
         if not self.active.any():
             return finished
@@ -574,7 +767,7 @@ class Engine:
             positions=self._tensor(self.positions)[:, None], cache=self.cache,
             valid=self._tensor(self.active)[:, None],
         )
-        nxt = self._sample(logits[:, -1], self.positions)
+        nxt = self._sample(logits[:, -1], self.positions, self._slot_rid)
         active_slots = np.flatnonzero(self.active)
         self.scheduler.note_decode(len(active_slots), time.monotonic() - t0)
         for slot in active_slots:
@@ -589,33 +782,8 @@ class Engine:
                 finished.append(rid)
         return finished
 
-    def generate(self, prompts: list[list[int]], max_new: int | None = None,
-                 sampling: SamplingParams | None = None) -> dict[int, list[int]]:
-        """Drive a batch of prompts to completion."""
-        rids = [self.submit(p, max_new=max_new, sampling=sampling, admit=False)
-                for p in prompts]
-        per_req = max_new if max_new is not None else self.scfg.max_new
-        for _ in range(per_req * len(prompts) + len(prompts) + 1):
-            if not (self.active.any() or self.scheduler.n_queued):
-                break
-            self.step()
-        if self.active.any() or self.scheduler.n_queued:
-            raise RuntimeError("generate() exceeded its step budget")
-        return {r: list(self.scheduler.requests[r].tokens) for r in rids}
-
-    # ---- introspection --------------------------------------------------
-    @property
-    def outputs(self) -> dict[int, list[int]]:
-        """rid -> tokens emitted so far, for every request that produced
-        any (finished, running or cancelled)."""
-        return {r.rid: r.tokens for r in self.scheduler.requests.values()
-                if r.tokens}
-
-    def drain_stream(self) -> list[tuple[int, int]]:
-        """Pop every ``(rid, token)`` emitted since the last drain."""
-        out = list(self._stream)
-        self._stream.clear()
-        return out
+    def _step_budget(self, prompts: list[list[int]], per_req: int) -> int:
+        return per_req * len(prompts) + len(prompts) + 1
 
     @torch.inference_mode()
     def peek_logits(self) -> np.ndarray:
@@ -627,11 +795,5 @@ class Engine:
         )
         return logits[:, -1].to(torch.float32).cpu().numpy()
 
-    def stats(self) -> dict:
-        """Scheduler counters: queue depth, per-phase tok/s, TTFT/latency;
-        with a plan database also its consultation (``"plan_db"``: hits,
-        misses, stale, the key and the directory)."""
-        s = self.scheduler.stats()
-        if self.plan_db_stats is not None:
-            s["plan_db"] = dict(self.plan_db_stats)
-        return s
+
+from .continuous import ContinuousEngine  # noqa: E402  (it builds on the above)

@@ -7,10 +7,12 @@ asks it which requests to admit when capacity frees up and reports every
 prefill/decode batch back so ``stats()`` can answer the operator questions
 — queue depth, tokens/s by phase, time-to-first-token, request latency.
 
-Host code, copied from the reference's ``repro.serving.scheduler``.  The
-port's fixed-slot ``Engine`` pops whole batches with ``admit``; ``peek``,
-``admit_front`` and ``requeue`` serve the continuous engine, which a later
-slice ports (ROADMAP queue 9).
+Host code, copied from the reference's ``repro.serving.scheduler``.  Two
+engines drive it: the fixed-slot ``Engine`` pops whole batches with
+``admit``, while ``ContinuousEngine`` inspects the queue head with ``peek``
+and pops one request at a time with ``admit_front`` (strict FIFO — if the
+front request's pages don't fit, nobody skips ahead of it) and may push a
+preempted request back to the *front* with ``requeue``.
 
 Accounting rules learned the hard way:
 

@@ -1,8 +1,10 @@
 """Persisted plan database: engine builds consult it before they search.
 
 The port's copy of the reference's ``repro.tuning.plandb``: ``dsp_tuned``
-plan tables (``"tuned"`` entries) and ``dsp_mixed`` width allocations
-(``"mixed"`` entries).  The engine computes a :func:`plan_key`
+plan tables (``"tuned"`` entries), ``dsp_mixed`` width allocations
+(``"mixed"`` entries) and, beside either, the governor's tier plan tables
+(a ``"tiers"`` record, fingerprinted by the governor settings that shape
+them and merge-written by ``serving.engine._setup_governor``).  The engine computes a :func:`plan_key`
 fingerprint, asks :class:`PlanDB` for it, and only falls back to
 search-and-store on a miss, so a restarted engine builds without scoring
 a single plan or running a single sensitivity probe.
@@ -29,8 +31,8 @@ measured floats included, and for ``dsp_mixed`` the whole
 :class:`~repro_torch.tuning.mixed.MixedAllocation` with its per-layer
 sensitivities, under the reference's schema: an allocation the reference
 wrote reads back here to an equal record (``tuning.mixed.PROBES`` stays
-at zero on a warm build).  The governor's ``"tiers"`` entries wait for
-the governor.
+at zero on a warm build; ``serving.governor.TIER_SEARCHES`` likewise for
+the tiers).
 """
 
 from __future__ import annotations

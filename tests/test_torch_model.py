@@ -200,14 +200,21 @@ def test_chunked_prefill_and_cached_decode_logits(setup, mode):
 
 
 def test_other_families_raise():
-    """Every family builds now; what still raises is the paged attention
-    branch of the continuous engine's cache (ROADMAP queue 9)."""
+    """Every family builds, and the paged attention branch of the
+    continuous engine's cache is ported: it needs a page table (without
+    one it raises, naming it), and with one a lane whose table holds only
+    the sentinel writes nothing and reads no live page."""
     cfg = t_get_config("xlstm-1.3b", smoke=True)
     params = TT.init_params(cfg, device="cpu")
     assert len(params["groups"]) == cfg.n_groups
     dense = t_get_config("qwen1.5-110b", smoke=True)
-    x = torch.zeros((1, 1, dense.d_model))
+    x = torch.ones((1, 1, dense.d_model))
     attn = TT.init_params(dense, device="cpu")["groups"][0]["attn"]
-    pages = {"pages_k": torch.zeros(1), "pages_v": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        TL.attention(attn, x, dense, torch.zeros((1, 1), dtype=torch.long), cache=pages)
+    pages = TL.init_paged_kv_cache(dense, 2, 4, torch.float32, torch.device("cpu"))
+    pos = torch.zeros((1, 1), dtype=torch.long)
+    with pytest.raises(ValueError, match="page_table"):
+        TL.attention(attn, x, dense, pos, cache=pages)
+    out, new = TL.attention(attn, x, dense, pos, cache=pages,
+                            page_table=torch.full((1, 2), 2, dtype=torch.int32))
+    assert torch.isfinite(out).all()
+    assert not new["pages_k"].any() and not new["pages_v"].any()

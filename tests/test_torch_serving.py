@@ -152,9 +152,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights):
 
 
 def test_unported_knobs_are_rejected_by_name():
-    for name, value in (("governor", True), ("tp", 2), ("deadline_ms", 5.0),
-                        ("page_size", 8), ("n_pages", 4), ("watermark_pages", 1)):
+    """Tensor parallelism is still rejected by name; the continuous
+    engine's paged-cache knobs, deadlines and the governor are ported and
+    validated as the reference validates them."""
+    for name, value in (("tp", 2),):
         with pytest.raises(NotImplementedError, match=name):
+            ServeConfig(device="cpu", **{name: value})
+    scfg = ServeConfig(device="cpu", page_size=8, n_pages=4, watermark_pages=1,
+                       deadline_ms=5.0, governor=True, quant_mode="dsp_tuned")
+    assert (scfg.page_size, scfg.n_pages, scfg.watermark_pages) == (8, 4, 1)
+    assert ServeConfig(device="cpu").page_size == 16
+    for name, value in (("page_size", 0), ("n_pages", 0), ("watermark_pages", -1),
+                        ("deadline_ms", 0.0), ("governor", True)):
+        with pytest.raises(ValueError, match=name):
             ServeConfig(device="cpu", **{name: value})
 
 
