@@ -131,6 +131,24 @@ anything in it fails:
    with prefill chunks of 8 rows and of 32; then dsp_mixed cold (a miss,
    the sensitivity pass run) and warm (a hit, no probe, the same widths
    and tokens) on the same database.
+10. training on the card (launch counts zeroed just before and read just
+    after: the path runs none of the five kernels, as the reference's
+    training reaches no Pallas kernel): h2o-danube-3-4b at full width
+    (d_model 3840, 32 heads with 8 KV heads, d_ff 10240, vocab 32000), 8 of
+    its 24 layers, bf16 compute over f32 parameters and AdamW state, global
+    batch 8 x 512 tokens of the synthetic stream, a cosine schedule (peak
+    3e-4, warmup 2, floor 0.1): 20 steps native, 10 qat4, 10 with
+    compress_grads, each with finite losses and grad norms and the last 5
+    losses' mean below the first 5's (median step ms, tokens/s, peak GB,
+    6 N tokens TFLOP/s); two uninterrupted 10-step native runs bit-equal,
+    the top 5 operators of one native step by ``torch.profiler``, and the
+    step-5 checkpoint (``Checkpointer``, 17.8 GB) restored and run to step
+    10 bit-equal to the uninterrupted run; the first step at the
+    qwen1.5-110b smoke config in f32 on the card against the CPU (loss
+    rtol 1e-5, grad norm 1e-4); then ``python -m repro_torch.launch.train``
+    at xlstm-1.3b's full config (48 layers, 8 x 128 tokens) as a
+    subprocess, 3 steps with a checkpoint directory under ``build/``, and a
+    relaunch that resumes from step 3 and runs 2 more.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -219,6 +237,21 @@ FAMILIES = [("jamba-v0.1-52b", dict(n_layers=8), ALL_MODES),
 # phase 5: h2o-danube's smoke window is 32 tokens; this prompt and 6 new
 # tokens cross it
 WRAP_PROMPT_LEN = 30
+# the training path: h2o-danube-3-4b at full width, 8 of its 24 layers, bf16
+# compute over f32 parameters and AdamW state; global batch 8 x 512 tokens
+# of the synthetic stream (seed 0); a cosine schedule, peak lr 3e-4, warmup
+# 2 steps, floor 0.1, over each run's steps
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "h2o-danube-3-4b", 8, 8, 512
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# (name, linear mode, steps, compress_grads); compress_grads runs 10 steps,
+# not 5, so that the first-5 / last-5 loss check compares disjoint windows
+TRAIN_RUNS = (("native", "native", 20, False), ("qat4", "qat4", 10, False),
+              ("compress_grads", "native", 10, True))
+TRAIN_RESUME_AT, TRAIN_RESUME_TO = 5, 10
+# the train CLI at xlstm-1.3b's full config (48 layers): 3 steps, then a
+# relaunch that resumes and runs 2 more
+CLI_TRAIN = ["--arch", "xlstm-1.3b", "--global-batch", "8", "--seq-len", "128",
+             "--log-every", "1"]
 
 
 def log(msg: str) -> None:
@@ -1326,6 +1359,241 @@ def serve_cli(torch, P, card: str) -> dict:
     return out
 
 
+# ---- training ------------------------------------------------------------
+
+
+def train_steps(torch, R, cfg, state, n: int, start: int = 0, compress: bool = False,
+                total: int | None = None, on_step=None) -> tuple[dict, list]:
+    """``n`` train steps from step ``start`` of the seeded stream (schedule
+    over ``total`` steps, default ``n``); returns the state and one record a
+    step: loss, ce, aux, grad norm, lr and the host ms to a device sync."""
+    total = total or n
+    step_fn = R.make_train_step(cfg, R.AdamWConfig(lr=TRAIN_LR), compress_grads=compress,
+                                lr_schedule=R.cosine_with_warmup(TRAIN_LR, TRAIN_WARMUP,
+                                                                 total))
+    data = R.SyntheticStream(R.DataConfig(cfg.vocab_size, TRAIN_SEQ + 1, TRAIN_BATCH, seed=0))
+    records = []
+    for i in range(start, start + n):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m = {k: float(v) for k, v in m.items()}  # waits for the step
+        m["ms"] = (time.perf_counter() - t0) * 1e3
+        records.append(m)
+        if on_step is not None:
+            on_step(i + 1, state)
+    return state, records
+
+
+def max_param_diff(a: list, b: list) -> float:
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def train_figures(records: list, n_params: int) -> dict:
+    """Median step ms (the first step, the allocator's warm-up, left out),
+    tokens/s and achieved TFLOP/s (6 * N * tokens over the step time)."""
+    ms = sorted(r["ms"] for r in records[1:])
+    med = ms[len(ms) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
+            "tflops": 6 * n_params * tokens / (med * 1e-3) / 1e12}
+
+
+def check_losses(name: str, records: list) -> None:
+    """Finite losses and grad norms; the last 5 losses' mean below the
+    first 5's."""
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise RuntimeError(f"training {name}: a loss or grad norm is not finite: {records}")
+    losses = [r["loss"] for r in records]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise RuntimeError(f"training {name}: the mean of the last 5 losses {last:.4f} is "
+                           f"not below the first 5's {first:.4f}")
+
+
+def top_ops(torch, fn, k: int = 5) -> list:
+    """The ``k`` operators of ``fn()`` with the most device time of their
+    own, by ``torch.profiler`` (empty when it records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e) -> float:
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return float(getattr(e, attr))
+        return 0.0
+
+    # operators only (their kernels are listed too, under the kernels' names)
+    events = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                    key=device_us, reverse=True)
+    return [{"op": e.key, "device_ms": device_us(e) / 1e3, "calls": e.count}
+            for e in events[:k] if device_us(e) > 0]
+
+
+def train_path(torch, R, card: str) -> dict:
+    """The training path (module docstring): three runs at h2o-danube-3-4b's
+    full width, the resume check, the card against the CPU at the smoke
+    config, and the train CLI at xlstm-1.3b's full config."""
+    import os
+    import shutil
+
+    out: dict = {"card": card, "arch": TRAIN_ARCH, "n_layers": TRAIN_LAYERS,
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+                 "schedule": f"cosine, warmup {TRAIN_WARMUP}, floor 0.1, over each run"}
+    base = dataclasses.replace(R.get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = R.Checkpointer(str(ckpt_dir), keep=1)
+    snapshot: dict = {}
+
+    def keep_resume_points(done: int, state: dict) -> None:
+        # the native run saves at step 5 and is read at step 10
+        if done == TRAIN_RESUME_AT:
+            t0 = time.perf_counter()
+            ckpt.save(done, state, extra={"train_step": done})
+            snapshot["save_s"] = time.perf_counter() - t0
+        if done == TRAIN_RESUME_TO:
+            snapshot["params"] = [p.detach().clone() for p in tree_leaves(state["params"])]
+
+    runs = {}
+    for name, mode, n, compress in TRAIN_RUNS:
+        cfg = dataclasses.replace(base, quant=R.LinearSpec(mode=mode))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = R.build_state(cfg, seed=0, compress_grads=compress, device="cuda")
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        state, records = train_steps(
+            torch, R, cfg, state, n, compress=compress,
+            on_step=keep_resume_points if name == "native" else None)
+        check_losses(name, records)
+        fig = train_figures(records, n_params)
+        fig.update(steps=n, n_params=n_params, records=records,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   first_step_ms=records[0]["ms"])
+        runs[name] = fig
+        log(f"train {name} on {card}: {n} steps, loss {records[0]['loss']:.4f} -> "
+            f"{records[-1]['loss']:.4f}, median {fig['step_ms_median']:.1f} ms/step, "
+            f"{fig['tokens_per_s']:.0f} tok/s, {fig['tflops']:.1f} TFLOP/s "
+            f"(6 N tokens, N {n_params / 1e9:.3f} G), peak {fig['peak_gb']:.1f} GB")
+        del state
+    out["runs"] = runs
+    out["save_s"] = snapshot["save_s"]
+
+    # the resume check: a second uninterrupted run first (determinism), then
+    # the step-5 checkpoint restored and run to step 10, on the native run's
+    # schedule
+    native_steps = TRAIN_RUNS[0][2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = R.build_state(base, seed=0, device="cuda")
+    twin, _ = train_steps(torch, R, base, twin, TRAIN_RESUME_TO, total=native_steps)
+    spread = max_param_diff(snapshot["params"], tree_leaves(twin["params"]))
+    out["uninterrupted_spread"] = spread
+    log(f"train resume: two uninterrupted {TRAIN_RESUME_TO}-step runs "
+        f"{'bit-equal' if spread == 0 else f'differ by up to {spread:.3g}'}")
+    if spread != 0:
+        raise RuntimeError("two identical uninterrupted runs differ on the card (max abs "
+                           f"diff {spread:.3g}): run the resume check under "
+                           "torch.use_deterministic_algorithms(True)")
+    holder = {"state": twin}
+    del twin
+
+    def one_native_step():  # traced; the twin is discarded after
+        holder["state"], _ = train_steps(torch, R, base, holder["state"], 1,
+                                         start=TRAIN_RESUME_TO, total=native_steps)
+
+    out["top_ops"] = top_ops(torch, one_native_step)
+    for op in out["top_ops"]:
+        log(f"train top op on {card}: {op['op']} {op['device_ms']:.2f} ms "
+            f"({op['calls']} calls)")
+    holder.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored, extra = ckpt.restore(TRAIN_RESUME_AT,
+                                   R.build_state(base, seed=1, device="cuda"))
+    out["restore_s"] = time.perf_counter() - t0
+    if extra != {"train_step": TRAIN_RESUME_AT}:
+        raise RuntimeError(f"resume: the checkpoint's extra is {extra}")
+    restored, _ = train_steps(torch, R, base, restored, TRAIN_RESUME_TO - TRAIN_RESUME_AT,
+                              start=TRAIN_RESUME_AT, total=native_steps)
+    diff = max_param_diff(snapshot["params"], tree_leaves(restored["params"]))
+    out["resume_diff"] = diff
+    log(f"train resume: saved at step {TRAIN_RESUME_AT} ({out['save_s']:.1f} s), restored "
+        f"({out['restore_s']:.1f} s), run to {TRAIN_RESUME_TO}: "
+        f"{'bit-equal' if diff == 0 else f'differs by up to {diff:.3g}'} to the "
+        "uninterrupted run")
+    if diff != 0:
+        raise RuntimeError(f"the resumed run differs from the uninterrupted one ({diff:.3g})")
+    del restored
+    snapshot.clear()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: the first step's loss and gradient norm at
+    # the smoke config in f32 (TF32 is off for the whole script)
+    smoke = dataclasses.replace(R.get_config("qwen1.5-110b", smoke=True), dtype="float32")
+    cpu_params = R.build_state(smoke, seed=0, device="cpu")["params"]
+    b = R.SyntheticStream(R.DataConfig(smoke.vocab_size, 33, 8, seed=1)).batch_at(0)
+    got = {}
+    for where in ("cpu", "cuda"):
+        params = R.tree_map(lambda p: p.detach().clone().to(where), cpu_params)
+        loss, _, grads = R.loss_and_grads(
+            params, smoke, {k: torch.from_numpy(v).to(where) for k, v in b.items()})
+        gnorm = math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in tree_leaves(grads)))
+        got[where] = (float(loss), gnorm)
+    loss_rel = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    gnorm_rel = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+    out["card_vs_cpu"] = {"loss": got, "loss_rel": loss_rel, "gnorm_rel": gnorm_rel}
+    log(f"train card vs CPU (qwen1.5-110b smoke, f32, TF32 off): loss {got['cuda'][0]:.7f} "
+        f"vs {got['cpu'][0]:.7f} (rel {loss_rel:.2e}), grad norm {got['cuda'][1]:.6f} vs "
+        f"{got['cpu'][1]:.6f} (rel {gnorm_rel:.2e})")
+    if not (loss_rel <= 1e-5 and gnorm_rel <= 1e-4):
+        raise RuntimeError("the card's first step disagrees with the CPU's beyond "
+                           "rtol 1e-5 (loss) / 1e-4 (grad norm)")
+
+    # the train CLI at xlstm-1.3b's full config: 3 steps, then a relaunch
+    # that resumes from the step-3 checkpoint and runs 2 more
+    cli_dir = ROOT / "build" / "train_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = {}
+    for steps in (3, 5):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *CLI_TRAIN,
+             "--steps", str(steps), "--ckpt-dir", str(cli_dir)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        lines = proc.stdout.splitlines()
+        cli[str(steps)] = {"s": time.perf_counter() - t0, "lines": lines}
+        for line in lines:
+            log(f"train cli on {card}: {line}")
+        if proc.returncode != 0 or not lines or lines[-1] != "[train] done":
+            raise RuntimeError(f"train CLI --steps {steps} failed ({proc.returncode}): "
+                               f"{proc.stderr[-2000:]}")
+        logged = [(float(line.split("loss=")[1].split()[0]),
+                   float(line.split("gnorm=")[1].split()[0])) for line in lines
+                  if line.startswith("[train] step=")]
+        if len(logged) != (3 if steps == 3 else 2):
+            raise RuntimeError(f"train CLI --steps {steps}: steps logged {logged}")
+        if not all(math.isfinite(x) for pair in logged for x in pair):
+            raise RuntimeError(f"train CLI --steps {steps}: (loss, gnorm) {logged}")
+    if "[train] resumed from step 3" not in cli["5"]["lines"]:
+        raise RuntimeError("the train CLI's relaunch did not resume from step 3")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    out["cli"] = cli
+    log(f"train cli on {card}: 3 steps in {cli['3']['s']:.1f} s, the relaunch "
+        f"resumed to 5 in {cli['5']['s']:.1f} s")
+    return out
+
+
 def agreement_continuous(torch, P, cfg, params, mode: str, table=None, prompts=None,
                          max_len: int = 32) -> list:
     """Continuous engine, kernel against plain version, at a smoke config:
@@ -1826,6 +2094,13 @@ def main(argv: list[str] | None = None) -> int:
     )
     from repro_torch.serving.governor import TIER_SEARCHES
     from repro_torch.tuning import DEFAULT_WIDTH_CANDIDATES, PROBES, autotune, tuner
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.packed_linear import LinearSpec
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.tree import tree_map
 
     P = types.SimpleNamespace(dataclasses=dataclasses, ref=ref, T=T, Engine=Engine,
                               ContinuousEngine=ContinuousEngine, ReplicaFront=ReplicaFront,
@@ -2016,6 +2291,24 @@ def main(argv: list[str] | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 10: training on the card, the launch counts zeroed just before
+    # and read just after (the training path reaches none of the kernels)
+    R = types.SimpleNamespace(
+        AdamWConfig=AdamWConfig, Checkpointer=Checkpointer, DataConfig=DataConfig,
+        LinearSpec=LinearSpec, SyntheticStream=SyntheticStream, build_state=build_state,
+        cosine_with_warmup=cosine_with_warmup, get_config=get_config,
+        loss_and_grads=loss_and_grads, make_train_step=make_train_step, tree_map=tree_map)
+    zero_counts(K)
+    t0 = time.perf_counter()
+    training = train_path(torch, R, card)
+    training["launches"] = kernel_counts(K)
+    training["seconds"] = time.perf_counter() - t0
+    log(f"training: {training['seconds']:.1f} s, launches {training['launches']}")
+    if any(training["launches"].values()):
+        raise RuntimeError(f"the training path launched a kernel: {training['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
     head.update({r["kernel"]: r for r in rows
                  if (r["M"], r["K"], r["N"]) == HEADLINE_PREFILL and r["parent_ms"] is not None})
@@ -2089,7 +2382,7 @@ def main(argv: list[str] | None = None) -> int:
             "families": fam_out, **path_out, "path_seconds": path_s,
             "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
-            "attention_checks": attn_checks,
+            "attention_checks": attn_checks, "training": training,
             "checks": len(checks), "seconds": time.perf_counter() - t_start,
         }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

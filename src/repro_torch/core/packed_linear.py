@@ -23,9 +23,17 @@ multiplied in float, its activations unquantized
   (:func:`ref.ref_quantized_matmul`), then the two scales.  No kernel: the
   reference computes this product outside any Pallas kernel too.
 
-``qat4``/``qat8`` (training) are accepted as names, so that a reference
-configuration reads the same, and raise ``NotImplementedError`` on a float
-leaf.
+* ``qat4``/``qat8`` — quantization-aware training: the float weight is
+  fake-quantized per output column (:func:`quantize.fake_quant_signed` on
+  axis 0, in f32, then cast to the compute dtype) and, when
+  ``LinearSpec.act_bits`` is set, the activations per row; the backward is
+  the straight-through estimator.
+
+The integer paths (``int8``, ``int4_packed``, ``dsp_packed``,
+``dsp_tuned`` and any packed leaf run through its integer arithmetic) are
+inference-only: their rounding would give a silent zero gradient, so they
+raise when a gradient is asked through them, as the reference's raise
+under differentiation.
 """
 
 from __future__ import annotations
@@ -42,17 +50,14 @@ from ..kernels.ref import (
     ref_quantized_matmul,
 )
 from .packed_params import is_dsp_tuned_leaf, is_packed_leaf, materialize_weight
-from .quantize import quantize_signed
+from .quantize import fake_quant_signed, quantize_signed
 
-__all__ = ["LinearSpec", "apply_linear", "MODES"]
+__all__ = ["LinearSpec", "apply_linear", "MODES", "INTEGER_MODES"]
 
 MODES = ("native", "qat4", "qat8", "int8", "int4_packed", "dsp_packed",
          "dsp_tuned")
 
-_NOT_PORTED = {
-    "qat4": "ROADMAP queue 11 (training)",
-    "qat8": "ROADMAP queue 11 (training)",
-}
+INTEGER_MODES = ("int8", "int4_packed", "dsp_packed", "dsp_tuned")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +65,7 @@ class LinearSpec:
     mode: str = "native"
     dsp_spec: PackedDotSpec = INT4_EXACT
     use_kernel: bool = False  # CUDA kernel vs plain version (CPU tests)
+    act_bits: int | None = None  # fake-quant activations too (QAT)
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
@@ -72,7 +78,15 @@ def apply_linear(params: dict, x: torch.Tensor,
     w = params["w"]
     mode = spec.mode
     lead = x.shape[:-1]
-    if is_dsp_tuned_leaf(w) and w.payload.dim() == 2:
+    tuned = is_dsp_tuned_leaf(w) and w.payload.dim() == 2
+    nibbles = is_packed_leaf(w) and mode == "int4_packed" and w["packed"].dim() == 2
+    if (tuned or nibbles or mode in INTEGER_MODES) and torch.is_grad_enabled() and (
+            x.requires_grad or getattr(w, "requires_grad", False)):
+        raise RuntimeError(
+            f"linear mode {mode!r} runs inference-only integer arithmetic and "
+            "has no gradient; train with 'native', 'qat4' or 'qat8'"
+        )
+    if tuned:
         # this layer's tuned plan rides on the leaf, whatever the mode
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         if w.prepacked:
@@ -88,7 +102,7 @@ def apply_linear(params: dict, x: torch.Tensor,
                 x2, w.values, w.scale, w.spec, use_kernel=spec.use_kernel
             )
         y = y.reshape(*lead, y.shape[-1]).to(x.dtype)
-    elif is_packed_leaf(w) and mode == "int4_packed" and w["packed"].dim() == 2:
+    elif nibbles:
         # the int4 kernel straight off the stored nibbles
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         if "w_f32" in w and not spec.use_kernel:
@@ -101,12 +115,14 @@ def apply_linear(params: dict, x: torch.Tensor,
     elif is_packed_leaf(w) or is_dsp_tuned_leaf(w):
         # packed storage under a float path: dequantize at use
         y = x @ materialize_weight(w, x.dtype)
-    elif mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"linear mode {mode!r} is not ported yet: {_NOT_PORTED[mode]}"
-        )
     elif mode in ("native", "dsp_tuned"):
         y = x @ w.to(x.dtype)
+    elif mode in ("qat4", "qat8"):
+        bits = 4 if mode == "qat4" else 8
+        wq = fake_quant_signed(w.to(torch.float32), bits, 0).to(x.dtype)
+        xq = (fake_quant_signed(x.to(torch.float32), spec.act_bits, -1).to(x.dtype)
+              if spec.act_bits else x)
+        y = xq @ wq
     elif mode == "int8":
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         xq = quantize_signed(x2, bits=8, axis=-1)

@@ -8,6 +8,12 @@ the matmul once per output channel (:func:`zero_point_correction`).
 Rounding is ``torch.round``, half to even like ``jnp.round``, and every
 division is IEEE float32, so payloads and scales are bit-identical to the
 reference's.
+
+``fake_quant_*`` are the straight-through-estimator (STE) versions for
+quantization-aware training: the forward quantizes and dequantizes, the
+backward passes the gradient unchanged inside the clipping range and zero
+outside it (the reference's mask: ``|x| <= scale * (qmax + 1)`` signed,
+``|x| <= scale * zp`` unsigned).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 __all__ = [
     "QuantizedTensor",
     "dequantize",
+    "fake_quant_signed",
+    "fake_quant_unsigned",
     "quantize_signed",
     "quantize_unsigned",
     "zero_point_correction",
@@ -72,3 +80,31 @@ def zero_point_correction(w_q: torch.Tensor, zp: int) -> torch.Tensor:
     """``zp * sum_k w[k, n]`` as int32: with ``a_u = a + zp``,
     ``a.w = a_u.w - zp * sum w`` per output channel."""
     return (zp * w_q.to(torch.int32).sum(dim=0, dtype=torch.int64)).to(torch.int32)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantize -> dequantize forward, masked straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, bits: int, axis: int, signed: bool):
+        quantize = quantize_signed if signed else quantize_unsigned
+        q = quantize(x, bits=bits, axis=axis)
+        # the clipping range: qmax + 1 steps signed, zp steps unsigned
+        # (both 2**(bits-1))
+        ctx.save_for_backward(x.abs() <= q.scale * (1 << (bits - 1)))
+        return q.dequantize().to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (mask,) = ctx.saved_tensors
+        return g * mask.to(g.dtype), None, None, None
+
+
+def fake_quant_signed(x: torch.Tensor, bits: int = 4, axis: int = -1) -> torch.Tensor:
+    """``quantize_signed`` then dequantize, in ``x.dtype``; STE backward."""
+    return _FakeQuant.apply(x, bits, axis, True)
+
+
+def fake_quant_unsigned(x: torch.Tensor, bits: int = 4, axis: int = -1) -> torch.Tensor:
+    """``quantize_unsigned`` then dequantize, in ``x.dtype``; STE backward."""
+    return _FakeQuant.apply(x, bits, axis, False)

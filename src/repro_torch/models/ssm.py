@@ -213,7 +213,10 @@ def _mlstm_chunk(carry, q_c, k_c, v_c, i_c, lf_c):
     n_inter = torch.einsum("bhcd,bhd->bhc", q_c, n) * dec_q
     gates = (i_c - csum)[:, :, None, :] - g[..., None]
     mask = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=q_c.device))
-    w_att = torch.where(mask[None, None], torch.exp(gates), 0.0)
+    # masked before the exp: above the diagonal a gate can overflow to inf,
+    # and where(mask, exp(gates), 0) would carry 0 * inf = nan into the
+    # gradient (the values are the same)
+    w_att = torch.exp(torch.where(mask[None, None], gates, -torch.inf))
     scores = torch.einsum("bhcd,bhed->bhce", q_c, k_c) * w_att
     y_intra = torch.einsum("bhce,bhed->bhcd", scores, v_c)
     n_intra = scores.sum(dim=-1)

@@ -27,11 +27,21 @@ Recurrent state (sLSTM, mLSTM, Mamba) is f32 in the cache whatever the
 compute dtype; the ssm family's cache holds no KV.  The continuous
 engine's paged cache (:func:`init_paged_cache`) holds page pools in place
 of the dense K/V, read and written through ``forward``'s ``page_table``.
+
+Under autograd without a cache (training), each group runs under one
+``torch.utils.checkpoint`` when ``cfg.remat`` is ``"dots"`` or ``"full"``,
+as the reference's ``_remat`` wraps its scan body: the group's forward is
+recomputed in the backward and only its inputs are kept (the reference's
+``"dots"`` also keeps its matmul outputs; a selective checkpoint here
+costs a Python dispatch per op, which the recurrent scans' many small ops
+cannot afford); ``"none"`` keeps everything.  It changes memory, not
+values.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.packed_linear import apply_linear
 from ..device import resolve_device
@@ -302,6 +312,30 @@ def _apply_group(gp: Params, x: torch.Tensor, cfg: ModelConfig,
     raise ValueError(f"unknown family {fam!r}")
 
 
+def _any_requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_any_requires_grad(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_any_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def _run_group(gp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+               cache: Params | None, encoder_out: torch.Tensor | None,
+               causal: bool = True, valid: torch.Tensor | None = None,
+               page_table: torch.Tensor | None = None):
+    """:func:`_apply_group`, under ``cfg.remat``'s checkpoint when it is
+    differentiated without a cache (module docstring)."""
+    if (cache is not None or cfg.remat == "none" or not torch.is_grad_enabled()
+            or not (x.requires_grad or _any_requires_grad(gp))):
+        return _apply_group(gp, x, cfg, positions, cache, encoder_out, causal,
+                            valid=valid, page_table=page_table)
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat {cfg.remat!r} not in ('none', 'dots', 'full')")
+    return checkpoint(_apply_group, gp, x, cfg, positions, None, encoder_out, causal,
+                      valid, page_table, use_reentrant=False)
+
+
 def _sinusoidal(length: int, d: int, device: torch.device) -> torch.Tensor:
     pos = torch.arange(length, dtype=_F32, device=device)[:, None]
     dim = torch.arange(0, d, 2, dtype=_F32, device=device)[None]
@@ -317,7 +351,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
     x = x + _sinusoidal(t, cfg.d_model, x.device)[None].to(x.dtype)
     positions = torch.arange(t, device=x.device)[None]
     for gp in params["encoder"]["groups"]:
-        x, _, _ = _apply_group(gp, x, cfg, positions, None, None, causal=False)
+        x, _, _ = _run_group(gp, x, cfg, positions, None, None, causal=False)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -360,9 +394,9 @@ def forward(
     new_cache = None if cache is None else []
     aux = torch.zeros((), dtype=_F32, device=x.device)
     for i, gp in enumerate(params["groups"]):
-        x, nc, a = _apply_group(gp, x, cfg, positions,
-                                None if cache is None else cache[i], encoder_out,
-                                valid=valid, page_table=page_table)
+        x, nc, a = _run_group(gp, x, cfg, positions,
+                              None if cache is None else cache[i], encoder_out,
+                              valid=valid, page_table=page_table)
         aux = aux + a
         if new_cache is not None:
             new_cache.append(nc)

@@ -1,5 +1,8 @@
-"""Runtime helpers of the serving engines."""
+"""Runtime helpers: fault tolerance (heartbeats, restarts, stragglers) and
+gradient compression."""
 
-from .fault_tolerance import StragglerDetector
+from .compression import compressed_grads, init_error_feedback
+from .fault_tolerance import Heartbeat, HeartbeatMonitor, RestartPolicy, StragglerDetector
 
-__all__ = ["StragglerDetector"]
+__all__ = ["Heartbeat", "HeartbeatMonitor", "RestartPolicy", "StragglerDetector",
+           "compressed_grads", "init_error_feedback"]

@@ -1,16 +1,61 @@
-"""Step-time straggler detection.
+"""Fault tolerance and straggler machinery (launcher side).
 
-The port's copy of the reference's ``StragglerDetector``
-(``repro.runtime.fault_tolerance``).  The continuous serving engine records
-each decode step's wall time in it under one host id, and the governor
-reads its rolling median as the slow-step signal.
+The port's copy of the reference's ``repro.runtime.fault_tolerance``.
+Every host runs a :class:`Heartbeat` writer and the job leader a
+:class:`HeartbeatMonitor`; a missed deadline marks the host dead, and the
+launcher restarts from ``Checkpointer.latest_step`` (:class:`RestartPolicy`).
+:class:`StragglerDetector` tracks per-host step times; the continuous
+serving engine records each decode step's wall time in it under one host
+id, and the governor reads its rolling median as the slow-step signal.
+Everything is plain files and the wall clock.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import time
 from collections import deque
 
-__all__ = ["StragglerDetector"]
+__all__ = ["Heartbeat", "HeartbeatMonitor", "StragglerDetector", "RestartPolicy"]
+
+
+class Heartbeat:
+    """Per-host liveness beacon: an atomically replaced step-and-time file."""
+
+    def __init__(self, directory: str, host_id: int):
+        self.path = os.path.join(directory, f"host_{host_id:05d}.hb")
+        os.makedirs(directory, exist_ok=True)
+
+    def beat(self, step: int) -> None:
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"step": step, "time": time.time()}, f)
+        os.replace(tmp, self.path)
+
+
+class HeartbeatMonitor:
+    """The hosts whose last beat is older than ``deadline_s``."""
+
+    def __init__(self, directory: str, deadline_s: float = 60.0):
+        self.directory = directory
+        self.deadline_s = deadline_s
+
+    def dead_hosts(self, now: float | None = None) -> list[int]:
+        now = time.time() if now is None else now
+        dead = []
+        for name in sorted(os.listdir(self.directory)):
+            if not name.endswith(".hb"):
+                continue
+            with open(os.path.join(self.directory, name)) as f:
+                t = json.load(f)["time"]
+            if now - t > self.deadline_s:
+                dead.append(int(name.split("_")[1].split(".")[0]))
+        return dead
+
+    def healthy(self, now: float | None = None) -> bool:
+        return not self.dead_hosts(now)
 
 
 class StragglerDetector:
@@ -66,3 +111,21 @@ class StragglerDetector:
         meds = {h: self._median(ts) for h, ts in self._times.items() if ts}
         fleet = self._median(list(meds.values()))
         return [h for h, m in meds.items() if m > self.threshold * fleet]
+
+
+@dataclasses.dataclass
+class RestartPolicy:
+    """Launcher decision table after a fault."""
+
+    max_restarts: int = 100
+    restarts: int = 0
+
+    def on_fault(self, dead_hosts: list[int], latest_step: int | None) -> dict:
+        self.restarts += 1
+        if self.restarts > self.max_restarts:
+            return {"action": "abort", "reason": "restart budget exhausted"}
+        return {
+            "action": "restart",
+            "from_step": latest_step or 0,
+            "replace_hosts": dead_hosts,
+        }

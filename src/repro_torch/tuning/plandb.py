@@ -223,7 +223,7 @@ class PlanDB:
         step = self._ckpt.latest_step()
         if step is None:
             return {}
-        extra = self._ckpt.restore(step)
+        _, extra = self._ckpt.restore(step, like={})
         if not isinstance(extra, dict) or extra.get("schema") != SCHEMA_VERSION:
             # another schema (or a foreign directory) reads as empty:
             # rebuild and overwrite, never deserialize stale layouts
@@ -234,8 +234,8 @@ class PlanDB:
 
     def _store(self, entries: dict[str, dict]) -> None:
         step = self._ckpt.latest_step()
-        self._ckpt.save(0 if step is None else step + 1,
-                        {"schema": SCHEMA_VERSION, "entries": entries})
+        self._ckpt.save(0 if step is None else step + 1, {},
+                        extra={"schema": SCHEMA_VERSION, "entries": entries})
 
     def get(self, key: str) -> dict | None:
         """The stored entry for ``key`` (a JSON dict as given to ``put``),

@@ -162,10 +162,14 @@ def test_tuned_leaf_follows_the_reference_conditions(mode):
 
 
 def test_unported_modes_still_raise_on_float_leaves():
+    """The training modes, once unported here, now run on a float leaf:
+    the weight fake-quantized per output column (bit-exact), then a float
+    matmul (atol as above)."""
+    w = _weights((D_IN, D_OUT), 12)
     for mode in ("qat4", "qat8"):
-        with pytest.raises(NotImplementedError, match=mode):
-            TL.apply_linear({"w": torch.zeros((D_IN, D_OUT))}, torch.zeros((1, D_IN)),
-                            TL.LinearSpec(mode=mode))
+        got, want = _apply({"w": jnp.asarray(w)}, {"w": torch.from_numpy(w)},
+                           _x((3, D_IN), 13), mode)
+        np.testing.assert_allclose(got, want, rtol=0, atol=FLOAT_ATOL)
 
 
 def _numpy_params(jcfg, seed: int = 0) -> dict:
