@@ -149,6 +149,23 @@ anything in it fails:
     at xlstm-1.3b's full config (48 layers, 8 x 128 tokens) as a
     subprocess, 3 steps with a checkpoint directory under ``build/``, and a
     relaunch that resumes from step 3 and runs 2 more.
+11. tensor-parallel serving (each rank's launch counts zeroed just before
+    its path and read just after: the path runs none of the kernels, as
+    the reference's tensor-parallel path reaches no Pallas kernel):
+    qwen1.5-110b at full width, 2 of its 80 layers, bf16 seeded weights,
+    phase 4's slots and requests, served at tp=2 by two spawned ranks
+    (gloo when they share the one card, NCCL with a card a rank; the
+    backend and its rule printed) in native, int4_packed, dsp_tuned (the
+    shard-aware tuner's plans) and dsp_tuned on a word-path plan (an mr plan not proven
+    exact on every path: the row leaves sum int32 packed words across
+    ranks), and by ``ContinuousEngine`` in int4_packed; rank 0 first
+    serves each alone at tp=1 on the card (the word-path mode on the
+    widened plan on its row paths), and every rank's tp=2 tokens must
+    equal tp=1's; decode ms/step, prefill tok/s and peak GB per rank at
+    both; then ``launch.serve --tp 2`` at the smoke config, its tokens
+    equal to ``--tp 1``'s.  A rank that fails or hangs (collectives time
+    out after ``TP_TIMEOUT_S``; the ranks are ended after
+    ``TP_DEADLINE_S``) fails the run.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -164,6 +181,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1616,6 +1634,257 @@ def agreement_continuous(torch, P, cfg, params, mode: str, table=None, prompts=N
         "tokens, the fixed-slot engine's")
     return list(toks[0].values())
 
+# ---- phase 11: tensor-parallel serving --------------------------------------
+
+# the tensor-parallel path: qwen1.5-110b at full width, TP_LAYERS of its 80
+# layers, bf16, phase 4's slots and requests, at tp=TP_RANKS against tp=1 on
+# the same card; two ranks share the one card over gloo (NCCL with a card a
+# rank where the machine has as many); every rank's collectives time out
+# after TP_TIMEOUT_S, and the parent ends the ranks after TP_DEADLINE_S
+TP_LAYERS, TP_RANKS, TP_TIMEOUT_S, TP_DEADLINE_S = 2, 2, 300, 900
+# (key, quant mode): "dsp_tuned" plans by the shard-aware tuner (proven
+# exact off the kernels: the f32 shard paths); "+words" serves on every path
+# the first mr plan of the shard-aware ranking (rank_plans(4, 4,
+# shard_groups=2)) that is not proven exact, so that no leaf carries w_f32
+# and the row leaves sum int32 words, against a tp=1 engine serving the
+# widened plan on the row paths
+TP_MODES = (("native", "native"), ("int4_packed", "int4_packed"),
+            ("dsp_tuned", "dsp_tuned"), ("dsp_tuned+words", "dsp_tuned"))
+
+
+def tp_serve(torch, W, build, prompts, key: str, tp: int, rank: int) -> dict:
+    """Build an engine (``build()``; tp > 1: the ranks one at a time on a
+    shared card), serve a 2-token warm-up request, then ``prompts`` greedily
+    to 8 tokens; its build seconds, prefill tok/s, median decode ms/step
+    (steps with no prefill), peak GB of this process and tokens."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = W.mesh.in_turns(build) if tp > 1 else build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine.generate([prompts[0][:4]], max_new=2)
+    sch = engine.scheduler
+    tok0, time0 = sch.prefill_tokens, sch.prefill_time_s
+    rids = [engine.submit(p, max_new=8, admit=False) for p in prompts]
+    steps = []
+    while engine.active.any() or sch.n_queued:
+        prefilling = getattr(engine, "_prefilling", None)
+        pure = not sch.n_queued and (prefilling is None or not prefilling.any())
+        t0 = time.perf_counter()
+        engine.step()
+        if pure:
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+    tokens = [list(engine.outputs[r]) for r in rids]
+    if [len(t) for t in tokens] != [8] * len(prompts):
+        raise RuntimeError(f"{key} tp={tp}: tokens {tokens}")
+    out = dict(build_s=build_s, use_kernel=engine.use_kernel,
+               prefill_tok_s=(sch.prefill_tokens - tok0) / (sch.prefill_time_s - time0),
+               decode_ms_per_step=sorted(steps)[len(steps) // 2], decode_ms_steps=sorted(steps),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, tokens=tokens)
+    if tp > 1:
+        kinds: dict = {}
+        for leaf in tree_leaves(engine.params):
+            if isinstance(leaf, W.TpLinear):
+                f32 = (leaf.inner.get("w_f32") if isinstance(leaf.inner, dict)
+                       else leaf.inner.w_f32) is not None
+                k = f"{leaf.kind} {'f32' if f32 else 'words'}"
+                kinds[k] = kinds.get(k, 0) + 1
+        out["tp_leaves"] = kinds
+    if rank == 0:
+        log(f"tp {key} tp={tp} rank 0: build {build_s:.1f} s, prefill "
+            f"{out['prefill_tok_s']:.1f} tok/s, decode {out['decode_ms_per_step']:.2f} "
+            f"ms/step, peak {out['peak_gb']:.1f} GB, use_kernel {engine.use_kernel}"
+            + (f", partitioned leaves {out['tp_leaves']}" if tp > 1 else ""))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(rank: int, world: int, init_method: str, outdir: str) -> None:
+    """One rank of the tensor-parallel path (a spawned process): join the
+    group, zero its launch counts, serve every mode of ``TP_MODES`` and one
+    ``ContinuousEngine`` at tp=``world`` (rank 0 first serves each at tp=1
+    alone on the card, the others waiting), read the counts, write this
+    rank's numbers to ``outdir/rank<rank>.json``."""
+    import types
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.core.packed_params import iter_packable_weights
+    from repro_torch.kernels import addpack_acc as A
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels.ref import widen_for_shards
+    from repro_torch.launch.mesh import init_serving_world, make_serving_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.runtime.sharding import linear_partition
+    from repro_torch.runtime.tp_packed import TpLinear
+    from repro_torch.serving import ContinuousEngine, Engine, ServeConfig
+    from repro_torch.analysis.verify import certify_spec
+    from repro_torch.tuning import rank_plans
+
+    backend = init_serving_world(rank, world, init_method, "cuda", timeout_s=TP_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = make_serving_mesh(world, "cuda")
+    K = types.SimpleNamespace(
+        int4_matmul=i4.int4_matmul, packed_matmul=pm.packed_matmul,
+        packed_matmul_prepacked=pm.packed_matmul_prepacked, flash_attention=F.flash_attention,
+        WRAPPERS={"int4_matmul": i4.int4_matmul, "packed_matmul": pm.packed_matmul,
+                  "packed_matmul_prepacked": pm.packed_matmul_prepacked,
+                  "addpack_accumulate": A.addpack_accumulate,
+                  "flash_attention": F.flash_attention})
+    W = types.SimpleNamespace(mesh=mesh, TpLinear=TpLinear)
+    cfg = dataclasses.replace(get_config("qwen1.5-110b"), n_layers=TP_LAYERS)
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 17, 30)]
+    words = next(r.spec for r in rank_plans(4, 4, shard_groups=world)
+                 if r.spec.uses_mr and not certify_spec(r.spec).exact)
+    out: dict = {"rank": rank, "backend": backend, "device": str(mesh.device),
+                 "words_plan": words.name(), "modes": {}}
+    zero_counts(K)
+
+    def engine_for(mode: str, key: str, tp: int, engine_cls=Engine):
+        def build():
+            params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+            table = None
+            if key.endswith("+words"):
+                paths = [p for p, _ in iter_packable_weights(params)]
+                # tp=1 serves the widened plan where tp=2 sums row words
+                table = {p: widen_for_shards(words, world)
+                         if tp == 1 and linear_partition(p) == "row" else words
+                         for p in paths}
+            return engine_cls(cfg, params, ServeConfig(
+                n_slots=4, max_len=64, prefill_chunk=16, max_new=8, eos_token=-1,
+                device="cuda", quant_mode=mode, tp=tp, use_kernel=False),
+                plan_table=table)
+        return build
+
+    runs = [(key, mode, Engine) for key, mode in TP_MODES]
+    runs.append(("continuous int4_packed", "int4_packed", ContinuousEngine))
+    for key, mode, engine_cls in runs:
+        row = {}
+        if rank == 0:
+            row["tp1"] = tp_serve(torch, W, engine_for(mode, key, 1, engine_cls), prompts,
+                                  key, 1, rank)
+        mesh.barrier()
+        row[f"tp{world}"] = tp_serve(torch, W, engine_for(mode, key, world, engine_cls),
+                                     prompts, key, world, rank)
+        out["modes"][key] = row
+        mesh.barrier()
+    out["launches"] = kernel_counts(K)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(torch, fn, world: int, args: tuple, deadline_s: float) -> None:
+    """Start ``world`` spawned processes running ``fn(rank, *args)`` and
+    wait; a rank that fails, or a run past ``deadline_s``, ends every rank
+    and raises."""
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=world, join=False,
+                                                start_method="spawn")
+    t_end = time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > t_end:
+                raise RuntimeError(f"the ranks ran past {deadline_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def tp_path(torch, card: str) -> dict:
+    """The tensor-parallel path (module docstring): ``TP_RANKS`` spawned
+    ranks, each mode's tp=2 tokens held to tp=1's on the same card, and the
+    serve CLI with ``--tp 2`` at the smoke config against ``--tp 1``."""
+    import socket
+
+    from repro_torch.launch import mesh as tp_mesh
+
+    world = TP_RANKS
+    backend = tp_mesh.choose_backend(world, "cuda")
+    log(f"tp path: {world} ranks, backend {backend} on {torch.cuda.device_count()} "
+        f"card(s) (rule: {tp_mesh.BACKEND_RULE}); staging: none, the collectives "
+        "take the ranks' CUDA tensors as they are")
+    outdir = ROOT / "build" / "tp_path"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for old in outdir.glob("rank*.json"):
+        old.unlink()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    run_ranks(torch, tp_worker, world, (world, f"tcp://localhost:{port}", str(outdir)),
+              TP_DEADLINE_S)
+    ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(world)]
+    out = {"card": card, "layers": TP_LAYERS, "ranks": world, "backend": ranks[0]["backend"],
+           "rule": tp_mesh.BACKEND_RULE,
+           "words_plan": ranks[0]["words_plan"], "seconds": time.perf_counter() - t0,
+           "modes": {}, "launches": {k: sum(r["launches"][k] for r in ranks)
+                                     for k in ranks[0]["launches"]}}
+    tpk = f"tp{world}"
+    for key, row in ranks[0]["modes"].items():
+        want = row["tp1"]["tokens"]
+        for r in ranks:
+            if r["modes"][key][tpk]["tokens"] != want:
+                raise RuntimeError(f"tp {key}: rank {r['rank']}'s tp={world} tokens "
+                                   f"{r['modes'][key][tpk]['tokens']} != tp=1's {want}")
+        if row[tpk]["use_kernel"]:
+            raise RuntimeError(f"tp {key}: tp={world} resolved use_kernel=True")
+        out["modes"][key] = {
+            "tp1": {k: v for k, v in row["tp1"].items() if k != "tokens"},
+            tpk: {k: v for k, v in row[tpk].items() if k != "tokens"},
+            "peak_gb_per_rank": [r["modes"][key][tpk]["peak_gb"] for r in ranks],
+            "tokens": want}
+        m = out["modes"][key]
+        log(f"tp {key} on {card}: tp={world} tokens equal tp=1's; decode "
+            f"{row['tp1']['decode_ms_per_step']:.2f} -> {row[tpk]['decode_ms_per_step']:.2f} "
+            f"ms/step, prefill {row['tp1']['prefill_tok_s']:.1f} -> "
+            f"{row[tpk]['prefill_tok_s']:.1f} tok/s, peak GB per rank "
+            f"{[round(g, 1) for g in m['peak_gb_per_rank']]} (tp=1 "
+            f"{row['tp1']['peak_gb']:.1f}), backend {out['backend']}")
+    words = out["modes"]["dsp_tuned+words"][tpk]["tp_leaves"]
+    if words.get("row words", 0) < 1 or words.get("row f32", 0) or words.get("col f32", 0):
+        raise RuntimeError(f"tp dsp_tuned+words: the row leaves {words} are not all on "
+                           "the word path")
+    if any(out["launches"].values()):
+        raise RuntimeError(f"the tensor-parallel path launched a kernel: {out['launches']}")
+    # the CLI: --tp 2 starts its own ranks; its tokens equal --tp 1's
+    cli = {}
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen1.5-110b",
+            "--smoke", "--requests", "3", "--max-new", "4", "--quant", "int4_packed"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for tp in (1, world):
+        t1 = time.perf_counter()
+        proc = subprocess.run(base + ["--tp", str(tp)], capture_output=True, text=True,
+                              env=env, cwd=ROOT, timeout=300)
+        if proc.returncode:
+            raise RuntimeError(f"serve CLI --tp {tp} failed: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        cli[tp] = dict(s=time.perf_counter() - t1, lines=lines,
+                       tokens=[line.split("-> ")[1] for line in lines
+                               if line.startswith("[serve] request")])
+    if cli[world]["tokens"] != cli[1]["tokens"] or len(cli[1]["tokens"]) != 3:
+        raise RuntimeError(f"serve CLI: --tp {world} tokens {cli[world]['tokens']} != "
+                           f"--tp 1's {cli[1]['tokens']}")
+    for line in cli[world]["lines"]:
+        if line.startswith(f"[serve] tp={world}") or "tokens in" in line:
+            log(f"tp cli on {card}: {line}")
+    out["cli"] = {str(k): v for k, v in cli.items()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ---- phase 9: the plan search on the card ------------------------------------
 
 
@@ -2309,6 +2578,12 @@ def main(argv: list[str] | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 11: tensor-parallel serving, each rank's launch counts zeroed
+    # just before its path and read just after (the path runs none of the
+    # kernels: no kernel has a cross-rank reduction stage)
+    tp = tp_path(torch, card)
+    log(f"tp path: {tp['seconds']:.1f} s, launches {tp['launches']}")
+
     head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
     head.update({r["kernel"]: r for r in rows
                  if (r["M"], r["K"], r["N"]) == HEADLINE_PREFILL and r["parent_ms"] is not None})
@@ -2333,11 +2608,13 @@ def main(argv: list[str] | None = None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (launches[name] + moe_launches[name]
                          + sum(c[name] for c in fam_launches.values())
-                         + sum(c[name] for c in path_launches.values())),
+                         + sum(c[name] for c in path_launches.values())
+                         + tp["launches"][name]),
             "launches_by_path": {"qwen1.5-110b": launches[name],
                                  "moonshot-v1-16b-a3b": moe_launches[name],
                                  **{a: c[name] for a, c in fam_launches.items()},
-                                 **{a: c[name] for a, c in path_launches.items()}},
+                                 **{a: c[name] for a, c in path_launches.items()},
+                                 "tp": tp["launches"][name]},
             "max_abs_err": max(c[2] for c in checks if c[0] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2382,7 +2659,7 @@ def main(argv: list[str] | None = None) -> int:
             "families": fam_out, **path_out, "path_seconds": path_s,
             "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
-            "attention_checks": attn_checks, "training": training,
+            "attention_checks": attn_checks, "training": training, "tp": tp,
             "checks": len(checks), "seconds": time.perf_counter() - t_start,
         }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

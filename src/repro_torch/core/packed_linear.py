@@ -23,6 +23,10 @@ multiplied in float, its activations unquantized
   (:func:`ref.ref_quantized_matmul`), then the two scales.  No kernel: the
   reference computes this product outside any Pallas kernel too.
 
+* a ``runtime.tp_packed.TpLinear`` leaf (tensor-parallel serving) runs
+  its shard's arithmetic and the cross-rank collectives, whatever the
+  mode.
+
 * ``qat4``/``qat8`` — quantization-aware training: the float weight is
   fake-quantized per output column (:func:`quantize.fake_quant_signed` on
   axis 0, in f32, then cast to the compute dtype) and, when
@@ -49,6 +53,7 @@ from ..kernels.ref import (
     pack_int4_weights,
     ref_quantized_matmul,
 )
+from ..runtime.tp_packed import TpLinear, apply_tp_linear
 from .packed_params import is_dsp_tuned_leaf, is_packed_leaf, materialize_weight
 from .quantize import fake_quant_signed, quantize_signed
 
@@ -78,6 +83,15 @@ def apply_linear(params: dict, x: torch.Tensor,
     w = params["w"]
     mode = spec.mode
     lead = x.shape[:-1]
+    if isinstance(w, TpLinear):
+        # tensor-parallel serving: the leaf was partitioned at engine build
+        # (runtime.tp_packed.shard_params_tp); the wrapper carries the
+        # partition kind and runs the cross-rank arithmetic
+        y = apply_tp_linear(w, x.reshape(-1, x.shape[-1]).to(torch.float32), spec)
+        y = y.reshape(*lead, y.shape[-1]).to(x.dtype)
+        if "b" in params:
+            y = y + params["b"].to(y.dtype)
+        return y
     tuned = is_dsp_tuned_leaf(w) and w.payload.dim() == 2
     nibbles = is_packed_leaf(w) and mode == "int4_packed" and w["packed"].dim() == 2
     if (tuned or nibbles or mode in INTEGER_MODES) and torch.is_grad_enabled() and (

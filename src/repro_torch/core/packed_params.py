@@ -312,9 +312,10 @@ def _leaf_plan(plan) -> tuple:
     return plan.spec, plan.block, plan.decode_block, exact
 
 
-def _convert_tree(params, targets: dict, convert):
-    """Replace the leaves named in ``targets`` (path -> per-leaf argument);
-    everything else passes through untouched (tensors are shared)."""
+def _convert_tree(params, targets: dict, convert, post=None):
+    """Replace the leaves named in ``targets`` (path -> per-leaf argument),
+    each then passed through ``post(leaf, path)`` if given; everything
+    else passes through untouched (tensors are shared)."""
 
     def walk(tree, path=""):
         if isinstance(tree, list):
@@ -326,6 +327,8 @@ def _convert_tree(params, targets: dict, convert):
             p = f"{path}/{k}"
             if p in targets and isinstance(v, torch.Tensor):
                 out[k] = convert(v, targets[p])
+                if post is not None:
+                    out[k] = post(out[k], p)
             else:
                 out[k] = walk(v, p)
         return out
@@ -336,7 +339,7 @@ def _convert_tree(params, targets: dict, convert):
 def quantize_for_serving(params, mode: str = "int4_packed",
                          min_dim: int = MIN_DIM, plans=None,
                          prepack: bool = True, use_kernel: bool = False,
-                         only_planned: bool = False):
+                         only_planned: bool = False, post=None):
     """Engine-build weight conversion.
 
     ``int4_packed`` packs every large matmul weight to nibbles once.
@@ -353,7 +356,9 @@ def quantize_for_serving(params, mode: str = "int4_packed",
     first two quantize at the point of use).  Every mode but ``native`` and
     ``none`` splits MoE expert stacks first.  ``use_kernel`` says where
     the leaves will be served: the CPU's f32 shortcut operands are built
-    only when it is false.
+    only when it is false.  ``post(leaf, path)`` replaces each converted
+    leaf as soon as it is made (tensor-parallel serving keeps its shard of
+    it there, so the full leaves never pile up).
     """
     if mode not in SERVING_MODES:
         raise ValueError(f"serving mode {mode!r} not in {SERVING_MODES}")
@@ -365,7 +370,7 @@ def quantize_for_serving(params, mode: str = "int4_packed",
     if mode == "int4_packed":
         return _convert_tree(
             params, dict.fromkeys(paths),
-            lambda w, _: _pack_matrix(w, keep_w_f32),
+            lambda w, _: _pack_matrix(w, keep_w_f32), post,
         )
     if mode in ("dsp_tuned", "dsp_mixed"):
         plans = plans or {}
@@ -373,6 +378,6 @@ def quantize_for_serving(params, mode: str = "int4_packed",
                    if not only_planned or plans.get(p) is not None}
         return _convert_tree(
             params, targets,
-            lambda w, spec: _tune_matrix(w, spec, prepack, keep_w_f32),
+            lambda w, spec: _tune_matrix(w, spec, prepack, keep_w_f32), post,
         )
     return params

@@ -40,6 +40,7 @@ __all__ = [
     "INT2_EXACT",
     "min_exact_p",
     "spec_from_name",
+    "widen_for_shards",
     "int_dot",
     "extract_accumulated_field",
     "contamination_mask",
@@ -245,6 +246,35 @@ INT4_MR_OVERPACKED = PackedDotSpec(
     bits_a=4, bits_w=4, p=10, n_pairs=16, correction="mr+full", mr_bits=3
 )
 INT2_EXACT = PackedDotSpec(bits_a=2, bits_w=2, p=10, n_pairs=32, correction="full")
+
+
+def widen_for_shards(spec: PackedDotSpec, n_shards: int) -> PackedDotSpec:
+    """The spec an ``n_shards``-way contraction-axis sharding must satisfy.
+
+    A row-parallel linear sums the shards' packed partial words across
+    ranks before field extraction (``runtime.tp_packed``), so the summed
+    word accumulates ``n_shards * n_pairs`` products per extraction group,
+    and every legality budget of :class:`PackedDotSpec` (the int32
+    accumulator, the middle-field width, extraction aliasing) must hold at
+    that length.  Constructing the widened spec is the legality check: an
+    illegal sharding raises the constructor's clause-citing
+    ``ValueError``.  Extraction reads ``p``, the extract width and the
+    correction, never ``n_pairs``, so extracting the summed word with
+    ``spec`` is the widened spec's extraction.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    if n_shards == 1:
+        return spec
+    try:
+        return dataclasses.replace(spec, n_pairs=n_shards * spec.n_pairs)
+    except ValueError as e:
+        raise ValueError(
+            f"{spec.name()} cannot be row-sharded {n_shards} ways: the "
+            f"cross-device word-space reduction accumulates "
+            f"{n_shards}x{spec.n_pairs} products per extraction group and "
+            f"the widened spec is illegal — {e}"
+        ) from e
 
 
 def min_exact_p(a_bits: int, w_bits: int, n_pairs: int,

@@ -27,24 +27,38 @@ engine over a paged KV cache (``--page-size``, ``--n-pages``,
 ``--deadline-ms`` sheds requests past it; ``--governor`` (dsp_tuned and
 dsp_mixed) holds a narrow exact weight tier beside the primary plans and
 swaps under load; ``--replicas N`` serves through N engines behind a
-join-shortest-queue front and prints each request's replica.  ``--tp``
-raises: tensor parallelism is not ported yet.
+join-shortest-queue front and prints each request's replica.
+
+``--tp N`` shards the packed weights over N ranks (``runtime.tp_packed``;
+tokens equal ``--tp 1``'s).  Under ``torchrun --nproc-per-node N`` each
+launched process serves as its rank; a plain ``python -m
+repro_torch.launch.serve --tp N`` starts its N ranks itself.  The backend
+follows ``launch.mesh.BACKEND_RULE`` (nccl with a card a rank; gloo when
+the ranks share one card, or on the CPU), and tensor-parallel serving
+runs the plain versions (no CUDA kernel has a cross-rank reduction).
+Every rank serves the same requests; only rank 0 prints.  ``--tp N
+--replicas R`` runs R engines, each tensor-parallel over the same N ranks.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..models import transformer as T
 from ..models.registry import get_config, list_archs
 from ..serving import ContinuousEngine, Engine, ReplicaFront, SamplingParams, ServeConfig
+from .mesh import BACKEND_RULE, init_serving_world
 
 
-def main(argv: list[str] | None = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
@@ -121,14 +135,62 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--replicas", type=int, default=1,
                     help="engines behind a join-shortest-queue front")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet: > 1 raises)")
+                    help="tensor-parallel degree: shard the packed weights over "
+                         "N ranks (tokens equal --tp 1's); under torchrun each "
+                         "process is a rank, else the CLI starts the N ranks")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain versions)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, init_method: str, args) -> None:
+    """One rank of a tensor-parallel launch: join the group, serve."""
+    init_serving_world(rank, world, init_method, args.device)
+    try:
+        _serve(args, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = _parser().parse_args(argv)
+    if args.tp > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ and "RANK" in os.environ:  # torchrun
+            _rank_main(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                       "env://", args)
+        else:
+            # start the ranks: a rank that fails ends the launch with its error
+            torch.multiprocessing.start_processes(
+                _rank_main, args=(args.tp, f"tcp://localhost:{_free_port()}", args),
+                nprocs=args.tp, start_method="spawn")
+        return
+    _serve(args, dist.get_rank() if dist.is_initialized() else 0)
+
+
+def _serve(args, rank: int) -> None:
+    """Build the engine (or front) and serve; only rank 0 prints."""
+    def say(*a, **k) -> None:
+        if rank == 0:
+            print(*a, **k)
+
+    def say_tp(engine) -> None:
+        mesh = engine.mesh
+        if mesh is None:
+            return
+        say(f"[serve] tp={mesh.n_shards}: backend {mesh.backend} (rule: "
+            f"{BACKEND_RULE}), rank 0 on {mesh.device}; "
+            f"use_kernel={engine.use_kernel} (tensor-parallel serving runs "
+            "the plain versions)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     params = T.init_params(cfg, seed=0, device=args.device)
@@ -158,38 +220,40 @@ def main(argv: list[str] | None = None) -> None:
                              "(per-replica token streams interleave)")
         front = ReplicaFront(cfg, params, serve_cfg, n_replicas=args.replicas,
                              engine_cls=engine_cls)
+        say_tp(front.replicas[0])
         t0 = time.time()
         outputs = front.generate(prompts, max_new=args.max_new)
         dt = time.time() - t0
         for grid, toks in sorted(outputs.items()):
-            print(f"[serve] request {grid} (replica {front.replica_of(grid)}): "
-                  f"{len(toks)} tokens -> {toks[:8]}...")
+            say(f"[serve] request {grid} (replica {front.replica_of(grid)}): "
+                f"{len(toks)} tokens -> {toks[:8]}...")
         stats = front.stats()
-        print(f"[serve] {sum(len(v) for v in outputs.values())} tokens in {dt:.2f}s "
-              f"across {stats['n_replicas']} replicas (engine={args.engine}, "
-              f"quant={serve_cfg.quant_mode}, finished {stats['finished']})")
+        say(f"[serve] {sum(len(v) for v in outputs.values())} tokens in {dt:.2f}s "
+            f"across {stats['n_replicas']} replicas (tp={args.tp}, engine={args.engine}, "
+            f"quant={serve_cfg.quant_mode}, finished {stats['finished']})")
         return
     engine = engine_cls(cfg, params, serve_cfg)
+    say_tp(engine)
     if engine.mixed_allocation is not None:
         alloc = engine.mixed_allocation
-        print(f"[serve] mixed-precision allocation (budget {alloc.budget:.4g}, "
-              f"predicted error {alloc.predicted_error:.4g}, cost "
-              f"{alloc.cost_vs_uniform_base:.2f}x uniform "
-              f"a{alloc.base_bits[0]}w{alloc.base_bits[1]}): "
-              + json.dumps(alloc.summary(), sort_keys=True))
+        say(f"[serve] mixed-precision allocation (budget {alloc.budget:.4g}, "
+            f"predicted error {alloc.predicted_error:.4g}, cost "
+            f"{alloc.cost_vs_uniform_base:.2f}x uniform "
+            f"a{alloc.base_bits[0]}w{alloc.base_bits[1]}): "
+            + json.dumps(alloc.summary(), sort_keys=True))
     elif engine.plan_table:
         plans = {r.name for r in engine.plan_table.values()}
-        print(f"[serve] tuned packing plans (budget {args.error_budget}): "
-              + ", ".join(sorted(plans)))
+        say(f"[serve] tuned packing plans (budget {args.error_budget}): "
+            + ", ".join(sorted(plans)))
         if args.autotune_plans:
             per_phase = {
                 f"{r.name}: prefill {r.block} / decode {r.decode_block}"
                 for r in engine.plan_table.values()
             }
-            print("[serve] per-phase tuned kernel variants: "
-                  + "; ".join(sorted(per_phase)))
+            say("[serve] per-phase tuned kernel variants: "
+                + "; ".join(sorted(per_phase)))
     if engine.tiers is not None:
-        print("[serve] governor tiers: " + "; ".join(
+        say("[serve] governor tiers: " + "; ".join(
             f"{i}:{t.name} (certified MAE <= {t.max_certified_mae:g})"
             for i, t in enumerate(engine.tiers)))
     sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
@@ -200,7 +264,7 @@ def main(argv: list[str] | None = None) -> None:
         while engine.active.any() or engine.scheduler.n_queued:
             engine.step()
             for rid, tok in engine.drain_stream():
-                print(f"[stream] rid {rid} -> {tok}")
+                say(f"[stream] rid {rid} -> {tok}")
         outputs = {r: list(engine.scheduler.requests[r].tokens) for r in rids}
     else:
         outputs = engine.generate(prompts, max_new=args.max_new,
@@ -209,36 +273,36 @@ def main(argv: list[str] | None = None) -> None:
     total_tokens = sum(len(v) for v in outputs.values())
     for rid, toks in sorted(outputs.items()):
         reason = engine.scheduler.requests[rid].finish_reason
-        print(f"[serve] request {rid}: {len(toks)} tokens ({reason}) "
-              f"-> {toks[:8]}...")
+        say(f"[serve] request {rid}: {len(toks)} tokens ({reason}) "
+            f"-> {toks[:8]}...")
     stats = engine.stats()
-    print(f"[serve] {total_tokens} tokens in {dt:.2f}s "
-          f"(engine={args.engine}, device={engine.device}, "
-          f"quant={serve_cfg.quant_mode}, use_kernel={engine.use_kernel}, "
-          f"prefill {stats['prefill_tok_s']:.1f} tok/s, "
-          f"decode {stats['decode_tok_s']:.1f} tok/s, "
-          f"ttft p50 {stats['p50_ttft_s'] * 1e3:.0f}ms / "
-          f"p99 {stats['p99_ttft_s'] * 1e3:.0f}ms)")
+    say(f"[serve] {total_tokens} tokens in {dt:.2f}s "
+        f"(engine={args.engine}, device={engine.device}, tp={args.tp}, "
+        f"quant={serve_cfg.quant_mode}, use_kernel={engine.use_kernel}, "
+        f"prefill {stats['prefill_tok_s']:.1f} tok/s, "
+        f"decode {stats['decode_tok_s']:.1f} tok/s, "
+        f"ttft p50 {stats['p50_ttft_s'] * 1e3:.0f}ms / "
+        f"p99 {stats['p99_ttft_s'] * 1e3:.0f}ms)")
     if args.engine == "continuous":
-        print(f"[serve] pages: {stats['n_pages'] - stats['free_pages']}"
-              f"/{stats['n_pages']} in use at exit (page_size {stats['page_size']}, "
-              f"watermark {stats['watermark_pages']}, peak "
-              f"{stats['peak_pages_in_use']}, preempted {stats['preempted']}, "
-              f"copy-on-write copies {stats['cow_copies']})")
+        say(f"[serve] pages: {stats['n_pages'] - stats['free_pages']}"
+            f"/{stats['n_pages']} in use at exit (page_size {stats['page_size']}, "
+            f"watermark {stats['watermark_pages']}, peak "
+            f"{stats['peak_pages_in_use']}, preempted {stats['preempted']}, "
+            f"copy-on-write copies {stats['cow_copies']})")
     if args.deadline_ms is not None:
-        print(f"[serve] shed {stats['shed']} of "
-              f"{stats['finished'] + stats['cancelled']} requests at the "
-              f"{args.deadline_ms:.0f}ms deadline")
+        say(f"[serve] shed {stats['shed']} of "
+            f"{stats['finished'] + stats['cancelled']} requests at the "
+            f"{args.deadline_ms:.0f}ms deadline")
     if "plan_db" in stats:
         db = stats["plan_db"]
         warm = "warm" if db["hits"] else "cold"
-        print(f"[serve] plan db {db['directory']}: {warm} build "
-              f"({db['hits']} hit / {db['misses']} miss / "
-              f"{db['stale']} stale, key {db['key'][:12]})")
+        say(f"[serve] plan db {db['directory']}: {warm} build "
+            f"({db['hits']} hit / {db['misses']} miss / "
+            f"{db['stale']} stale, key {db['key'][:12]})")
     if "governor" in stats:
         g = stats["governor"]
-        print(f"[serve] governor: tier {g['tier']} ({g['tier_name']}) "
-              f"after {g['swaps']} swaps over {g['observations']} steps")
+        say(f"[serve] governor: tier {g['tier']} ({g['tier_name']}) "
+            f"after {g['swaps']} swaps over {g['observations']} steps")
 
 
 if __name__ == "__main__":

@@ -58,11 +58,23 @@ reason ``"deadline"``; with ``governor`` the engine holds prebuilt weight
 tiers (``serving.governor``) and swaps them at a step boundary under load
 (:meth:`Engine.set_tier` swaps by hand).  Each step sheds, governs, admits,
 then decodes.
+
+Tensor parallelism (``tp``): one process a rank on ``torch.distributed``
+(the launcher starts the ranks and joins them,
+``launch.mesh.init_serving_world``); every rank builds the same engine
+over ``launch.mesh.make_serving_mesh(tp)`` and serves the same requests.
+After quantization each packed linear keeps only this rank's shard
+(``runtime.tp_packed``), and the plan searches and the plan-database key
+plan row-partitioned layers for the widened cross-rank word
+(``shard_groups=tp``).  Host decisions read from a rank's own clock (the
+deadline sheds, the governor's slow-step signal) are taken on rank 0 and
+broadcast, so every rank runs the same steps; tokens equal ``tp=1``'s.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any
@@ -95,12 +107,6 @@ from .scheduler import Scheduler
 
 __all__ = ["ServeConfig", "Engine", "ContinuousEngine"]
 
-# reference knobs of later slices: rejected by name while unported
-_LATER = {
-    "tp": "ROADMAP queue 10 (tensor parallelism)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Everything the engine decides at build time, in one frozen record.
@@ -118,9 +124,12 @@ class ServeConfig:
     size the continuous engine's paged cache; the fixed-slot ``Engine``
     ignores them.  ``deadline_ms`` sheds requests past it; ``governor``
     (True, or a ``serving.governor.GovernorConfig``) holds degraded weight
-    tiers, under ``dsp_tuned`` and ``dsp_mixed`` only.  The reference's
-    tensor parallelism is a field so that a reference configuration reads
-    the same; setting it raises, naming the roadmap queue that ports it.
+    tiers, under ``dsp_tuned`` and ``dsp_mixed`` only.  ``tp`` shards
+    the packed weights over the first ``tp`` ranks of the process group
+    (module docstring); at ``tp > 1`` ``use_kernel=None`` resolves to
+    False, because no CUDA kernel has a cross-rank reduction stage (the
+    reference's tensor-parallel path runs its jnp versions too), and
+    ``use_kernel=True`` raises.
     """
 
     n_slots: int = 8
@@ -161,6 +170,7 @@ class ServeConfig:
     deadline_ms: float | None = None
     # load-adaptive precision governor: False, True or a GovernorConfig
     governor: Any = False
+    # tensor-parallel degree: packed weights sharded over the first tp ranks
     tp: int = 1
 
     def __post_init__(self) -> None:
@@ -172,12 +182,14 @@ class ServeConfig:
             raise ValueError(
                 f"watermark_pages must be >= 0, got {self.watermark_pages}"
             )
-        for name, queue in _LATER.items():
-            default = ServeConfig.__dataclass_fields__[name].default
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"ServeConfig.{name} is not ported yet: {queue}"
-                )
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.tp > 1 and self.use_kernel:
+            raise ValueError(
+                "tp > 1 runs the plain versions (no CUDA kernel has a "
+                "cross-rank reduction stage); use_kernel=True is not "
+                "supported under tensor parallelism"
+            )
         if self.quant_mode not in SERVING_MODES:
             raise ValueError(
                 f"quant_mode {self.quant_mode!r} not in {SERVING_MODES}"
@@ -259,6 +271,8 @@ def _tuned_plans(cfg: ModelConfig, params, scfg: ServeConfig, use_kernel: bool,
         # off the kernels, proven-exact plans run through the f32-GEMM
         # shortcut: rank those first (see tuning.rank_plans)
         exact_first=not use_kernel,
+        # row-partitioned layers plan for the widened cross-rank word
+        shard_groups=scfg.tp,
     )
     if db is not None:
         db.put(key, {"kind": "tuned",
@@ -294,7 +308,7 @@ def _mixed_allocation(cfg: ModelConfig, params, scfg: ServeConfig, use_kernel: b
         params, cfg, mixed_budget=scfg.mixed_budget,
         widths=scfg.width_candidates or DEFAULT_WIDTH_CANDIDATES,
         n_calib_tokens=scfg.calib_tokens, seed=scfg.seed,
-        exact_first=not use_kernel,
+        exact_first=not use_kernel, shard_groups=scfg.tp,
     )
     if db is not None:
         db.put(key, {"kind": "mixed", "allocation": allocation_to_json(allocation)})
@@ -313,12 +327,14 @@ def _float_tree(params, scfg: ServeConfig):
 
 def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
                             use_kernel: bool, device: torch.device, plan_table,
-                            mixed_allocation=None):
+                            mixed_allocation=None, mesh=None):
     """Switch the arithmetic mode, fuse same-input projections if asked, run
     the ``dsp_tuned`` plan search or the ``dsp_mixed`` allocation and
     quantize the weights onto the mode.  ``dsp_mixed`` leaves run the
-    ``dsp_tuned`` arithmetic, each with its own plan.  Returns ``(cfg,
-    params, plan_table, mixed_allocation, plan_db_stats)``."""
+    ``dsp_tuned`` arithmetic, each with its own plan.  With a ``mesh`` of
+    more than one shard each leaf keeps only this rank's shard as soon as
+    it is made (:func:`_shard_for_tp`).  Returns ``(cfg, params,
+    plan_table, mixed_allocation, plan_db_stats)``."""
     if plan_table is not None and scfg.quant_mode != "dsp_tuned":
         raise ValueError(
             f"plan_table was given but quant_mode is {scfg.quant_mode!r}; "
@@ -350,9 +366,22 @@ def _prepare_serving_params(cfg: ModelConfig, params, scfg: ServeConfig,
         table = mixed_allocation.plans
     params = quantize_for_serving(
         params, scfg.quant_mode, plans=table, prepack=scfg.prepack,
-        use_kernel=use_kernel,
+        use_kernel=use_kernel, post=_shard_for_tp(mesh),
     )
     return cfg, params, table, mixed_allocation, db_stats
+
+
+def _shard_for_tp(mesh):
+    """The per-leaf partition of a tensor-parallel build (None without
+    one): each quantized leaf keeps this rank's shard the moment it is
+    made (``runtime.tp_packed.shard_leaf``), so the full leaves never pile
+    up; an illegal row sharding raises the clause-citing error naming the
+    leaf.  (``ServeConfig`` has already rejected ``use_kernel`` at tp > 1.)"""
+    if mesh is None or mesh.n_shards == 1:
+        return None
+    from ..runtime.tp_packed import shard_leaf
+
+    return lambda leaf, path: shard_leaf(leaf, path, mesh)
 
 
 def _setup_governor(engine, cfg: ModelConfig, float_params, scfg: ServeConfig) -> None:
@@ -362,7 +391,10 @@ def _setup_governor(engine, cfg: ModelConfig, float_params, scfg: ServeConfig) -
     tier plan tables are stored under the engine's ``plan_key`` entry
     (a ``"tiers"`` record, fingerprinted by the governor settings that
     shape them, merged beside the ``"tuned"``/``"mixed"`` record), so a
-    warm governed build runs no tier search; weights are never stored."""
+    warm governed build runs no tier search; weights are never stored.
+    Under tensor parallelism the tiers plan for ``shard_groups=tp`` and
+    the non-primary tiers are partitioned onto the engine's mesh, so that
+    a swap stays a pointer repoint."""
     engine.governor = None
     engine.tiers = None
     engine.active_tier = 0
@@ -386,7 +418,8 @@ def _setup_governor(engine, cfg: ModelConfig, float_params, scfg: ServeConfig) -
             tables = {name: {p: report_from_json(r) for p, r in tbl.items()}
                       for name, tbl in stored["tables"].items()}
     engine.tiers = build_tiers(cfg, float_params, scfg, engine.params,
-                               engine.plan_table, gcfg, tables=tables)
+                               engine.plan_table, gcfg, tables=tables,
+                               shard_groups=scfg.tp)
     if db is not None and tables is None:
         # merge-write the fresh ladders beside the plan entry the build wrote
         payload = dict(entry or {})
@@ -396,6 +429,15 @@ def _setup_governor(engine, cfg: ModelConfig, float_params, scfg: ServeConfig) -
                        for t in engine.tiers if t.name != "primary"},
         }
         db.put(engine.plan_db_stats["key"], payload)
+    if engine.mesh is not None:
+        # the non-primary tiers were quantized whole: partition them too
+        from ..runtime.tp_packed import shard_params_tp
+
+        engine.tiers = tuple(
+            t if t.params is engine.params else dataclasses.replace(
+                t, params=shard_params_tp(t.params, engine.mesh,
+                                          use_kernel=engine.use_kernel))
+            for t in engine.tiers)
     engine.governor = Governor(gcfg, len(engine.tiers))
 
 
@@ -425,8 +467,9 @@ class _ServingEngine:
     def _build(self, cfg: ModelConfig, params, serve_cfg: ServeConfig, plan_table,
                mixed_allocation) -> None:
         self.device = resolve_device(serve_cfg.device)
-        use_kernel = (self.device.type == "cuda" if serve_cfg.use_kernel is None
-                      else serve_cfg.use_kernel)
+        # tp > 1 runs the plain versions (see ServeConfig)
+        use_kernel = (self.device.type == "cuda" and serve_cfg.tp == 1
+                      if serve_cfg.use_kernel is None else serve_cfg.use_kernel)
         if use_kernel and self.device.type != "cuda":
             raise ValueError("use_kernel=True runs the CUDA kernels: it needs "
                              "device='cuda'")
@@ -435,16 +478,25 @@ class _ServingEngine:
             raise ValueError(f"params lie on {embed.device}, the engine serves "
                              f"on {self.device}")
         self.use_kernel = use_kernel
-        (cfg, quantized, self.plan_table, self.mixed_allocation,
-         self.plan_db_stats) = _prepare_serving_params(
-            cfg, params, serve_cfg, use_kernel, self.device, plan_table,
-            mixed_allocation,
-        )
-        self.cfg = cfg
-        self.params = quantized
+        self.mesh = None
+        if serve_cfg.tp > 1:
+            from ..launch.mesh import make_serving_mesh
+
+            self.mesh = make_serving_mesh(serve_cfg.tp, self.device)
         self.scfg = serve_cfg
-        _setup_governor(self, cfg, _float_tree(params, serve_cfg) if serve_cfg.governor
-                        else None, serve_cfg)
+
+        def build():
+            (self.cfg, self.params, self.plan_table, self.mixed_allocation,
+             self.plan_db_stats) = _prepare_serving_params(
+                cfg, params, serve_cfg, use_kernel, self.device, plan_table,
+                mixed_allocation, self.mesh,
+            )
+            _setup_governor(self, self.cfg, _float_tree(params, serve_cfg)
+                            if serve_cfg.governor else None, serve_cfg)
+
+        # ranks that share a card build one at a time (launch.mesh)
+        build() if self.mesh is None else self.mesh.in_turns(build)
+        cfg = self.cfg
         b = serve_cfg.n_slots
         # a sliding window's ring cache takes one position a call: a chunk
         # landing in the ring would overwrite slots that earlier queries of
@@ -534,9 +586,19 @@ class _ServingEngine:
     def _shed_expired(self) -> list[int]:
         """Cancel every request past its deadline (finish reason
         ``"deadline"``): queued ones never take room, running ones free it
-        at this step boundary."""
+        at this step boundary.  Under tensor parallelism rank 0's clock
+        decides for every rank (a rank-local clock would split the ranks'
+        steps)."""
+        expired = self.scheduler.expired()
+        if self.mesh is not None and self.scheduler._deadlined:
+            # every rank holds the same deadlined rids: rank 0's flag for
+            # each, one int8 a rid, is the decision
+            pending = sorted(self.scheduler._deadlined)
+            flags = torch.tensor([rid in expired for rid in pending], dtype=torch.int8)
+            flags = self.mesh.broadcast(flags)
+            expired = [rid for rid, f in zip(pending, flags.tolist()) if f]
         shed = []
-        for rid in self.scheduler.expired():
+        for rid in expired:
             if not self.scheduler.cancel(rid, "deadline"):
                 self._release_rid(rid)
             shed.append(rid)
@@ -561,6 +623,13 @@ class _ServingEngine:
     def _govern(self, slow_step_ms: float | None = None) -> None:
         if self.governor is None:
             return
+        if self.mesh is not None and self.governor.config.slow_step_ms is not None:
+            # a step time is rank-local: rank 0's decides for every rank
+            # (NaN stands for None)
+            box = torch.tensor([math.nan if slow_step_ms is None else slow_step_ms],
+                               dtype=torch.float64)
+            ms = self.mesh.broadcast(box).item()
+            slow_step_ms = None if math.isnan(ms) else ms
         target = self.governor.observe(self.scheduler.n_queued, slow_step_ms=slow_step_ms)
         if target != self.active_tier:
             self.set_tier(target)

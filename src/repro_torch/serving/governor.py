@@ -29,14 +29,18 @@ engine built on the target tier.
 The controller is deliberately boring: swaps need ``hold_steps``
 consecutive out-of-band observations to fire, and the counters reset on
 every swap, so the dwell between swaps is at least ``hold_steps``.
-Tensor-parallel tiers wait for tensor-parallel serving (ROADMAP queue
-10); every plan here runs on one device.
+Under tensor parallelism the tiers plan row-partitioned layers for the
+widened cross-rank word (``shard_groups``) and certify that spec, and the
+engine partitions every tier onto its mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from ..kernels.ref import widen_for_shards
+from ..runtime.sharding import linear_partition
 
 __all__ = ["GovernorConfig", "Governor", "Tier", "TIER_SEARCHES",
            "build_tiers"]
@@ -125,21 +129,37 @@ class _SearchCounter:
 TIER_SEARCHES = _SearchCounter()
 
 
-def _table_mae(plan_table: dict) -> float:
+def _served_groups(path: str, shard_groups: int) -> int:
+    """The shards a layer's packed word sums over: ``shard_groups`` for a
+    row-partitioned layer under tensor parallelism, else 1."""
+    if shard_groups > 1 and linear_partition(path) == "row":
+        return shard_groups
+    return 1
+
+
+def _served_spec(report, path: str, shard_groups: int):
+    """The spec whose arithmetic runs for this layer: the plan's own spec,
+    widened for a tensor-parallel row layer (the cross-rank sum
+    accumulates every shard's products in one word, ``runtime.tp_packed``)."""
+    return widen_for_shards(report.spec, _served_groups(path, shard_groups))
+
+
+def _table_mae(plan_table: dict, shard_groups: int = 1) -> float:
     """The worst certified MAE per extraction over a plan table (0.0 when
-    every plan is exact)."""
+    every plan is exact), each layer's spec as it is served."""
     from ..analysis.verify import certify_spec
 
     out = 0.0
-    for r in plan_table.values():
-        cert = certify_spec(r.spec)
+    for path, r in plan_table.items():
+        cert = certify_spec(_served_spec(r, path, shard_groups))
         out = max(out, 0.0 if cert.exact else float(cert.mae_per_extraction))
     return out
 
 
 def build_tiers(cfg, float_params, serve_cfg, primary_params,
                 primary_table: dict, gcfg: GovernorConfig,
-                tables: dict | None = None) -> tuple[Tier, ...]:
+                tables: dict | None = None,
+                shard_groups: int = 1) -> tuple[Tier, ...]:
     """Build the degradation ladder from the post-fusion float weights.
 
     ``float_params`` must be the tree ``primary_params`` was quantized
@@ -151,14 +171,16 @@ def build_tiers(cfg, float_params, serve_cfg, primary_params,
     ``tables`` (``{"narrow": {path: PlanReport}, "emergency": {...}}``,
     from the plan database's ``"tiers"`` record) replaces the tier plan
     searches: quantization still runs, no search does
-    (``TIER_SEARCHES.count`` stays flat)."""
+    (``TIER_SEARCHES.count`` stays flat).  ``shard_groups`` is the
+    engine's tensor-parallel degree: tier searches pick shard-legal plans
+    for row-partitioned layers as the primary build does."""
     from ..core.packed_params import quantize_for_serving
     from ..tuning import plan_linear_layers
 
     use_kernel = bool(cfg.quant.use_kernel)
     tables = tables or {}
     tiers = [Tier("primary", primary_params, dict(primary_table),
-                  _table_mae(primary_table))]
+                  _table_mae(primary_table, shard_groups))]
 
     def quantized(table: dict):
         return quantize_for_serving(float_params, "dsp_tuned", plans=table,
@@ -171,48 +193,53 @@ def build_tiers(cfg, float_params, serve_cfg, primary_params,
         TIER_SEARCHES.count += 1
         narrow_table = plan_linear_layers(
             float_params, a_bits=a, w_bits=w, error_budget=0.0,
-            exact_first=not use_kernel,
+            exact_first=not use_kernel, shard_groups=shard_groups,
         )
     tiers.append(Tier("narrow", quantized(narrow_table), narrow_table,
-                      _table_mae(narrow_table)))
+                      _table_mae(narrow_table, shard_groups)))
 
     if gcfg.emergency_tier:
         emergency_table = tables.get("emergency")
         if emergency_table is None:
             TIER_SEARCHES.count += 1
-            emergency_table = _emergency_table(a, w, gcfg, narrow_table)
+            emergency_table = _emergency_table(a, w, gcfg, narrow_table,
+                                               shard_groups)
         tiers.append(Tier("emergency", quantized(emergency_table),
-                          emergency_table, _table_mae(emergency_table)))
+                          emergency_table, _table_mae(emergency_table, shard_groups)))
     return tuple(tiers)
 
 
 def _emergency_table(a: int, w: int, gcfg: GovernorConfig,
-                     narrow_table: dict) -> dict:
+                     narrow_table: dict, shard_groups: int = 1) -> dict:
     """The cheapest overpacked plan whose CERTIFIED MAE fits the ceiling,
     on every path of ``narrow_table``: packing density beyond what
     exactness permits, quality bounded by the certificate (never by
-    sampling luck)."""
+    sampling luck).  Under tensor parallelism the pick is made per
+    partition kind: a row layer's certificate is the widened spec's."""
     from ..analysis.verify import certify_spec
     from ..tuning import rank_plans
 
-    ranked = rank_plans(a, w, error_budget=gcfg.emergency_max_mae,
-                        exact_first=False)
-    # gate on the certified bound, not the sampled MAE rank_plans filtered
-    # on: a lucky zero-measured sample must not admit a plan whose
-    # certificate cannot honour the ceiling
-    over = []
-    for r in ranked:
-        cert = certify_spec(r.spec)
-        if not cert.exact and float(cert.mae_per_extraction) <= gcfg.emergency_max_mae:
-            over.append(r)
-    if not over:
-        raise ValueError(
-            f"no overpacked a{a}w{w} plan has certified MAE <= "
-            f"{gcfg.emergency_max_mae}; raise emergency_max_mae or disable "
-            "emergency_tier"
-        )
-    pick = min(over, key=lambda r: (r.cost_proxy, r.mae_per_extraction))
-    return {p: pick for p in narrow_table}
+    picks = {}
+    for groups in sorted({_served_groups(p, shard_groups) for p in narrow_table} or {1}):
+        ranked = rank_plans(a, w, error_budget=gcfg.emergency_max_mae,
+                            exact_first=False, shard_groups=groups)
+        # gate on the certified bound of the served spec, not the sampled
+        # MAE rank_plans filtered on: a lucky zero-measured sample must not
+        # admit a plan whose certificate cannot honour the ceiling
+        over = []
+        for r in ranked:
+            cert = certify_spec(widen_for_shards(r.spec, groups))
+            if not cert.exact and float(cert.mae_per_extraction) <= gcfg.emergency_max_mae:
+                over.append(r)
+        if not over:
+            sharded = f" at shard_groups={groups}" if groups > 1 else ""
+            raise ValueError(
+                f"no overpacked a{a}w{w} plan has certified MAE <= "
+                f"{gcfg.emergency_max_mae}{sharded}; raise emergency_max_mae or "
+                "disable emergency_tier"
+            )
+        picks[groups] = min(over, key=lambda r: (r.cost_proxy, r.mae_per_extraction))
+    return {p: picks[_served_groups(p, shard_groups)] for p in narrow_table}
 
 
 class Governor:

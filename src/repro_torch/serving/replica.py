@@ -2,8 +2,10 @@
 
 The port of the reference's ``repro.serving.replica``.  ``n_replicas``
 complete engines run side by side and a front routes requests between
-them (the replicas share one card here; tensor parallelism, which splits
-one engine over several cards, waits for ROADMAP queue 10).
+them.  Tensor parallelism (``ServeConfig.tp``) splits one engine's weights
+over ranks; the two compose: with ``tp > 1`` every replica is a
+tensor-parallel engine over the same ``tp`` ranks, and every rank runs
+the same front on the same submissions, so every rank routes alike.
 
 Routing is join-shortest-queue and deterministic: a request goes to the
 replica with the least load (``queued + running`` from

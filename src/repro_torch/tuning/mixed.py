@@ -40,9 +40,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..runtime.sharding import linear_partition
 from . import _jax_prng
 from .score import plan_cost_proxy
-from .tuner import PlanReport, linear_partition, select_plan
+from .tuner import PlanReport, select_plan
 
 __all__ = [
     "DEFAULT_WIDTH_CANDIDATES",
@@ -276,9 +277,10 @@ def allocate_mixed_plans(
     larger saving, then path name).  ``error_budget`` is the plan-level
     MAE budget forwarded to ``select_plan`` per width; 0 keeps every plan
     provably exact.  ``shard_groups > 1`` selects shard-legal plans for
-    row-partitioned layers (``tuner.linear_partition``); a row layer whose
-    ``base_bits`` has none starts at the widest servable candidate (forced,
-    not charged against the budget, but counted in ``predicted_error``)."""
+    row-partitioned layers (``runtime.sharding.linear_partition``); a row
+    layer whose ``base_bits`` has none starts at the widest servable
+    candidate (forced, not charged against the budget, but counted in
+    ``predicted_error``)."""
     if base_bits is None:
         base_bits = _widest(widths)
     if base_bits not in widths:

@@ -35,6 +35,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..kernels.ref import INT4_EXACT, PackedDotSpec
+from ..runtime.sharding import linear_partition
 from .autotune import autotune_block, autotune_phase_blocks
 from .plans import enumerate_specs
 from .score import SpecScore, plan_cost_proxy, spec_error_stats
@@ -372,27 +373,3 @@ def plan_linear_layers(
             )
         table[path] = by_shape[shape_key]
     return table
-
-
-# The Megatron partition conventions of the reference's
-# ``repro.runtime.sharding`` (``COL_TOKENS``, ``ROW_TOKENS``,
-# ``linear_partition``), copied here for ``plan_linear_layers`` until the
-# port's tensor-parallel serving (ROADMAP queue 10) ports that module.
-COL_TOKENS = frozenset({
-    "wq", "wk", "wv", "wqkv", "up", "gate", "upgate", "in_proj", "wz",
-    "wi", "wf", "wo_gate", "lm_head", "x_proj", "dt_proj", "patch_proj",
-})
-ROW_TOKENS = frozenset({"wo", "down", "out_proj"})
-
-
-def linear_partition(path: str) -> str | None:
-    """Partition kind of a linear weight's tree path: ``"col"`` (output
-    dim sharded), ``"row"`` (contraction dim sharded, a reduction after
-    the shard-local matmul) or None (replicated).  Tokens match the
-    "/"-split path exactly, never by substring."""
-    tokens = set(path.lower().split("/"))
-    if tokens & COL_TOKENS:
-        return "col"
-    if tokens & ROW_TOKENS:
-        return "row"
-    return None

@@ -286,7 +286,7 @@ def test_serve_cli(flags, expect):
 
 
 def test_serve_cli_refusals():
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        serve.main(CLI + ["--tp", "2"])
+    with pytest.raises(ValueError, match="tp must be >= 1"):
+        serve.main(CLI + ["--tp", "0"])
     with pytest.raises(SystemExit, match="--stream"):
         serve.main(CLI + ["--replicas", "2", "--stream"])

@@ -152,12 +152,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights):
 
 
 def test_unported_knobs_are_rejected_by_name():
-    """Tensor parallelism is still rejected by name; the continuous
-    engine's paged-cache knobs, deadlines and the governor are ported and
+    """No knob is rejected as unported any more: tensor parallelism, the
+    continuous engine's paged-cache knobs, deadlines and the governor are
     validated as the reference validates them."""
-    for name, value in (("tp", 2),):
-        with pytest.raises(NotImplementedError, match=name):
-            ServeConfig(device="cpu", **{name: value})
+    assert ServeConfig(device="cpu", tp=2).tp == 2
+    with pytest.raises(ValueError, match="tp must be >= 1"):
+        ServeConfig(device="cpu", tp=0)
+    with pytest.raises(ValueError, match="use_kernel=True is not supported"):
+        ServeConfig(device="cpu", tp=2, use_kernel=True)
     scfg = ServeConfig(device="cpu", page_size=8, n_pages=4, watermark_pages=1,
                        deadline_ms=5.0, governor=True, quant_mode="dsp_tuned")
     assert (scfg.page_size, scfg.n_pages, scfg.watermark_pages) == (8, 4, 1)
