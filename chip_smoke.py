@@ -166,6 +166,30 @@ anything in it fails:
     equal to ``--tp 1``'s.  A rank that fails or hangs (collectives time
     out after ``TP_TIMEOUT_S``; the ranks are ended after
     ``TP_DEADLINE_S``) fails the run.
+12. sharded training (each rank's launch counts zeroed just before its
+    path and read just after: the path runs none of the kernels, as the
+    reference's sharded training reaches no Pallas kernel):
+    h2o-danube-3-4b at full width, 2 of its 24 layers, bf16 compute over
+    f32 state, phase 10's global batch, on two spawned ranks (gloo when
+    they share the one card; the backend and its rule printed); rank 0
+    first trains 3 steps mesh-free alone on the card; then 3 steps at mesh
+    (2, 1) ("data", "model": FSDP over "data") and one with compress_grads
+    at (1, 2), each with finite losses and grad norms and its first loss
+    within rtol 1e-2 of the mesh-free one (median step ms, state and peak
+    GB per rank); rank 0's mesh-free state saved and restored onto (2, 1),
+    the shards gathered bit-equal to it, one more step from them within
+    rtol 1e-2 of the mesh-free step; ``pipeline_forward`` over 2 stages
+    ("pod", "data", "model") = (2, 1, 1), 4 microbatches of 2, against rank
+    0's sequential forward: max abs difference 0 at qwen1.5-110b's smoke
+    config in f32 (16 tokens), at most 2e-3 at the full width in f32 (512
+    tokens); the qwen1.5-110b smoke config in f32, one step at (2, 1) on
+    the card against the CPU's mesh-free step (loss rtol 1e-5, grad norm
+    1e-4); then ``python -m torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train`` at h2o-danube-3-4b's smoke config with
+    ``--mesh local``, 3 steps, and a relaunch that resumes and runs 2
+    more.  A rank that fails or hangs (collectives time out after
+    ``MESH_TIMEOUT_S``; the ranks are ended after ``MESH_DEADLINE_S``)
+    fails the run.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -1885,6 +1909,345 @@ def tp_path(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 12: sharded training -----------------------------------------------
+
+# the sharded training path: h2o-danube-3-4b at full width, MESH_LAYERS of its
+# 24 layers, bf16 compute over f32 state, phase 10's global batch (8 x 512 of
+# the synthetic stream, seed 0) and peak lr at a constant schedule; MESH_RANKS
+# ranks share the one card over gloo (NCCL with a card a rank where the
+# machine has as many); collectives time out after MESH_TIMEOUT_S, and the
+# parent ends the ranks after MESH_DEADLINE_S
+MESH_LAYERS, MESH_RANKS, MESH_STEPS, MESH_TIMEOUT_S, MESH_DEADLINE_S = 2, 2, 3, 300, 600
+# the pipeline: 2 stages over "pod", 4 microbatches; the smoke config's
+# sequences are 16 tokens, the full width's 512
+PIPE_MICRO, PIPE_MB = 4, 2
+# the train CLI under torch.distributed.run: 2 ranks on the card, 3 steps,
+# then a relaunch that resumes and runs 2 more
+CLI_MESH = ["--arch", TRAIN_ARCH, "--smoke", "--mesh", "local", "--log-every", "1"]
+
+
+def mesh_steps(torch, R, cfg, state, batches: list, mesh=None, p_shard=None,
+               compress: bool = False, start: int = 0) -> tuple[dict, list]:
+    """Train steps (the mesh's when ``mesh`` is given) on ``batches``
+    from ``start``, at a constant lr; one record a step: loss, grad norm
+    and the host ms to a device sync."""
+    step_fn = R.make_train_step(cfg, R.AdamWConfig(lr=TRAIN_LR), mesh, compress_grads=compress,
+                                grad_shardings=p_shard)
+    records = []
+    for b in batches[start:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        torch.cuda.synchronize()
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        records.append(rec)
+    return state, records
+
+
+def state_gb(R, state) -> float:
+    return sum(t.numel() * t.element_size() for t in R.tree_leaves(state)) / 1e9
+
+
+def mesh_worker(rank: int, world: int, init_method: str, outdir: str) -> None:
+    """One rank of the sharded training path (a spawned process): join the
+    group, zero its launch counts, run every check of phase 12 that runs
+    on the ranks (rank 0 first trains mesh-free alone, the other waiting),
+    read the counts, write this rank's numbers to ``outdir/rank<rank>.json``."""
+    import types
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import addpack_acc as A
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.launch.mesh import init_serving_world, make_local_mesh, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_state, param_placement, state_shardings
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.pipeline import pipeline_forward, split_stages
+    from repro_torch.tree import tree_leaves, tree_map
+
+    backend = init_serving_world(rank, world, init_method, "cuda", timeout_s=MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    K = types.SimpleNamespace(
+        int4_matmul=i4.int4_matmul, packed_matmul=pm.packed_matmul,
+        packed_matmul_prepacked=pm.packed_matmul_prepacked, flash_attention=F.flash_attention,
+        WRAPPERS={"int4_matmul": i4.int4_matmul, "packed_matmul": pm.packed_matmul,
+                  "packed_matmul_prepacked": pm.packed_matmul_prepacked,
+                  "addpack_accumulate": A.addpack_accumulate,
+                  "flash_attention": F.flash_attention})
+    R = types.SimpleNamespace(make_train_step=make_train_step, AdamWConfig=AdamWConfig,
+                              tree_leaves=tree_leaves)
+    zero_counts(K)
+    out: dict = {"rank": rank, "backend": backend, "device": str(torch.cuda.current_device())}
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
+    data = SyntheticStream(DataConfig(cfg.vocab_size, TRAIN_SEQ + 1, TRAIN_BATCH, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+               for i in range(MESH_STEPS + 1)]
+
+    def fresh_peak():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # mesh-free, rank 0 alone on the card; its state is then saved
+    # mesh-free and kept in host memory (the mesh's peaks are its own)
+    free = None
+    ckdir = os.path.join(outdir, "ckpt")
+    if rank == 0:
+        fresh_peak()
+        free = build_state(cfg, seed=0, device="cuda")
+        free, records = mesh_steps(torch, R, cfg, free, batches[:MESH_STEPS])
+        out["free"] = {"records": records, "state_gb": state_gb(R, free),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        t0 = time.perf_counter()
+        Checkpointer(ckdir, keep=1).save(MESH_STEPS, free, extra={"train_step": MESH_STEPS})
+        out["save_s"] = time.perf_counter() - t0
+        free = tree_map(lambda t: t.detach().cpu(), free)
+    dist.barrier()
+
+    # mesh (2, 1): FSDP over "data"; then (1, 2) with compress_grads
+    runs = {}
+    for name, (data_ax, model_ax), n, compress in (("data2", (world, 1), MESH_STEPS, False),
+                                                  ("model2", (1, world), 1, True)):
+        mesh = make_local_mesh(data=data_ax, model=model_ax)
+        p_shard = param_placement(cfg, mesh)
+        fresh_peak()
+        state = build_state(cfg, seed=0, device="cuda", compress_grads=compress,
+                            shardings=p_shard)
+        gb = state_gb(R, state)
+        state, records = mesh_steps(torch, R, cfg, state, batches[:n], mesh, p_shard,
+                                    compress)
+        runs[name] = {"mesh": mesh.shape, "records": records, "state_gb": gb,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+    out["runs"] = runs
+
+    # re-sharded restore: rank 0's mesh-free state after MESH_STEPS, saved
+    # mesh-free, restored onto (2, 1); the shards gathered equal it bit for
+    # bit; one more step from the restored shards against one mesh-free step
+    mesh = make_local_mesh(data=world, model=1)
+    p_shard = param_placement(cfg, mesh)
+    fresh_peak()
+    t0 = time.perf_counter()
+    like = build_state(cfg, seed=1, device="cuda", shardings=p_shard)
+    restored, extra = Checkpointer(ckdir).restore(MESH_STEPS, like,
+                                                  shardings=state_shardings(p_shard))
+    del like
+    out["restore_s"] = time.perf_counter() - t0
+    whole = tree_map(lambda t, sh: t if sh is None else sh.gather(t), restored,
+                     state_shardings(p_shard))
+    if rank == 0:
+        out["restore_bit_equal"] = all(torch.equal(a.cpu(), b) for a, b in
+                                       zip(tree_leaves(whole), tree_leaves(free)))
+    del whole
+    restored, rec = mesh_steps(torch, R, cfg, restored, batches, mesh, p_shard,
+                               start=MESH_STEPS)
+    out["restore_step"] = rec[0]
+    out["restore_extra"] = extra
+    del restored
+    if rank == 0:
+        free = tree_map(lambda t: t.cuda(), free)
+        free, rec = mesh_steps(torch, R, cfg, free, batches, start=MESH_STEPS)
+        out["free_step4"] = rec[0]
+    del free
+    fresh_peak()
+
+    # the pipeline: 2 stages over "pod", against rank 0's sequential forward
+    mesh3 = make_mesh((world, 1, 1), ("pod", "data", "model"))
+    out["pipeline"] = {}
+    gen = torch.Generator().manual_seed(3)
+    for name, pcfg, seq in (("qwen1.5-110b smoke f32",
+                             dataclasses.replace(get_config("qwen1.5-110b", smoke=True),
+                                                 dtype="float32"), 16),
+                            (f"{TRAIN_ARCH} full width f32",
+                             dataclasses.replace(cfg, dtype="float32"), TRAIN_SEQ)):
+        params = T.init_params(pcfg, seed=0, dtype=torch.float32, device="cuda")
+        toks = torch.randint(0, pcfg.vocab_size, (PIPE_MICRO, PIPE_MB, seq),
+                             generator=gen).cuda()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pipeline_forward(split_stages(params, world), pcfg, toks, mesh3)
+            torch.cuda.synchronize()
+            row = {"ms": (time.perf_counter() - t0) * 1e3}
+            if rank == 0:
+                want = torch.stack([T.forward(params, pcfg, t)[0] for t in toks])
+                row["max_abs_diff"] = float((got - want).abs().max())
+                row["finite"] = bool(torch.isfinite(got).all())
+        out["pipeline"][name] = row
+        del params, got
+        fresh_peak()
+
+    # the smoke config in f32: one sharded step on the card against the
+    # CPU's mesh-free step, on parameters made on the CPU
+    smoke = dataclasses.replace(get_config("qwen1.5-110b", smoke=True), dtype="float32")
+    cpu_state = build_state(smoke, seed=0, device="cpu")
+    b = SyntheticStream(DataConfig(smoke.vocab_size, 33, 8, seed=1)).batch_at(0)
+    p_shard = param_placement(smoke, mesh)
+    state = {"params": tree_map(lambda t, sh: sh.place(t.cuda()), cpu_state["params"],
+                                p_shard)}
+    state["opt"] = adamw_init(state["params"])
+    _, rec = mesh_steps(torch, R, smoke, state,
+                        [{k: torch.from_numpy(v).cuda() for k, v in b.items()}], mesh, p_shard)
+    out["smoke_card"] = rec[0]
+    if rank == 0:
+        step = make_train_step(smoke, AdamWConfig(lr=TRAIN_LR))
+        _, m = step(cpu_state, {k: torch.from_numpy(v) for k, v in b.items()})
+        out["smoke_cpu"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    out["launches"] = kernel_counts(K)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_path(torch, card: str) -> dict:
+    """The sharded training path (module docstring): ``MESH_RANKS`` spawned
+    ranks, then the train CLI under ``torch.distributed.run``."""
+    import shutil
+    import socket
+
+    from repro_torch.launch import mesh as tp_mesh
+
+    world = MESH_RANKS
+    backend = tp_mesh.choose_backend(world, "cuda")
+    log(f"mesh path: {world} ranks, backend {backend} on {torch.cuda.device_count()} "
+        f"card(s) (rule: {tp_mesh.BACKEND_RULE})")
+    outdir = ROOT / "build" / "mesh_path"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    t0 = time.perf_counter()
+    run_ranks(torch, mesh_worker, world,
+              (world, f"tcp://localhost:{free_port()}", str(outdir)), MESH_DEADLINE_S)
+    ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(world)]
+    shutil.rmtree(outdir / "ckpt", ignore_errors=True)
+    r0 = ranks[0]
+    out = {"card": card, "arch": TRAIN_ARCH, "layers": MESH_LAYERS, "ranks": world,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "backend": r0["backend"],
+           "rule": tp_mesh.BACKEND_RULE, "free": r0["free"],
+           "runs": {k: {**v, "state_gb_per_rank": [r["runs"][k]["state_gb"] for r in ranks],
+                        "peak_gb_per_rank": [r["runs"][k]["peak_gb"] for r in ranks]}
+                    for k, v in r0["runs"].items()},
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}}
+    free_loss = r0["free"]["records"][0]["loss"]
+    for name, run in out["runs"].items():
+        recs = [rec for r in ranks for rec in r["runs"][name]["records"]]
+        if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in recs):
+            raise RuntimeError(f"mesh {name}: a loss or grad norm is not finite: {recs}")
+        rel = abs(run["records"][0]["loss"] - free_loss) / abs(free_loss)
+        run["first_loss_rel"] = rel
+        ms = sorted(x["ms"] for x in run["records"][1:]) or [run["records"][0]["ms"]]
+        run["step_ms_median"] = ms[len(ms) // 2]
+        log(f"mesh {name} {run['mesh']} on {card}: {len(run['records'])} step(s), loss "
+            f"{run['records'][0]['loss']:.4f} -> {run['records'][-1]['loss']:.4f} (mesh-free "
+            f"first {free_loss:.4f}, rel {rel:.2e}), median {run['step_ms_median']:.1f} "
+            f"ms/step, state GB per rank {[round(g, 2) for g in run['state_gb_per_rank']]} "
+            f"(mesh-free {r0['free']['state_gb']:.2f}), peak GB per rank "
+            f"{[round(g, 2) for g in run['peak_gb_per_rank']]} (mesh-free "
+            f"{r0['free']['peak_gb']:.2f})")
+        if not rel <= 1e-2:
+            raise RuntimeError(f"mesh {name}: the first loss is {rel:.2e} from the mesh-free "
+                               "one, past rtol 1e-2")
+    fms = sorted(x["ms"] for x in r0["free"]["records"][1:])
+    out["free"]["step_ms_median"] = fms[len(fms) // 2]
+    log(f"mesh-free on {card}: median {out['free']['step_ms_median']:.1f} ms/step")
+
+    # the restore
+    step_rel = abs(r0["restore_step"]["loss"] - r0["free_step4"]["loss"]) / \
+        abs(r0["free_step4"]["loss"])
+    out["restore"] = {"bit_equal": r0["restore_bit_equal"], "save_s": r0["save_s"],
+                      "restore_s": [r["restore_s"] for r in ranks],
+                      "step": r0["restore_step"], "free_step": r0["free_step4"],
+                      "step_loss_rel": step_rel}
+    log(f"mesh restore: saved mesh-free ({r0['save_s']:.1f} s), restored onto (2, 1) "
+        f"({max(out['restore']['restore_s']):.1f} s), shards "
+        f"{'bit-equal' if r0['restore_bit_equal'] else 'NOT equal'} to the saved state; "
+        f"the next step's loss {r0['restore_step']['loss']:.4f} vs mesh-free "
+        f"{r0['free_step4']['loss']:.4f} (rel {step_rel:.2e})")
+    if not r0["restore_bit_equal"] or r0["restore_extra"] != {"train_step": MESH_STEPS}:
+        raise RuntimeError("mesh restore: the restored shards differ from the saved state")
+    if not step_rel <= 1e-2:
+        raise RuntimeError(f"mesh restore: the next step's loss is {step_rel:.2e} from the "
+                           "mesh-free one, past rtol 1e-2")
+
+    # the pipeline
+    out["pipeline"] = {}
+    for name, row in r0["pipeline"].items():
+        out["pipeline"][name] = {**row, "ms_per_rank": [r["pipeline"][name]["ms"]
+                                                        for r in ranks]}
+        log(f"mesh pipeline {name} on {card}: 2 stages, {PIPE_MICRO} microbatches of "
+            f"{PIPE_MB}, max abs diff to the sequential forward {row['max_abs_diff']:.3g}, "
+            f"{row['ms']:.1f} ms")
+        limit = 0.0 if "smoke" in name else 2e-3
+        if not (row["finite"] and row["max_abs_diff"] <= limit):
+            raise RuntimeError(f"mesh pipeline {name}: max abs diff {row['max_abs_diff']} "
+                               f"past {limit}")
+
+    # the smoke config: the card's sharded step against the CPU's
+    card_s, cpu_s = r0["smoke_card"], r0["smoke_cpu"]
+    loss_rel = abs(card_s["loss"] - cpu_s["loss"]) / abs(cpu_s["loss"])
+    gnorm_rel = abs(card_s["grad_norm"] - cpu_s["grad_norm"]) / cpu_s["grad_norm"]
+    out["smoke_card_vs_cpu"] = {"card": card_s, "cpu": cpu_s, "loss_rel": loss_rel,
+                                "gnorm_rel": gnorm_rel}
+    log(f"mesh smoke (qwen1.5-110b, f32, (2, 1)) card vs CPU mesh-free: loss "
+        f"{card_s['loss']:.7f} vs {cpu_s['loss']:.7f} (rel {loss_rel:.2e}), grad norm "
+        f"{card_s['grad_norm']:.6f} vs {cpu_s['grad_norm']:.6f} (rel {gnorm_rel:.2e})")
+    if not (loss_rel <= 1e-5 and gnorm_rel <= 1e-4):
+        raise RuntimeError("mesh smoke: the card's sharded step disagrees with the CPU's "
+                           "beyond rtol 1e-5 (loss) / 1e-4 (grad norm)")
+    if any(out["launches"].values()):
+        raise RuntimeError(f"the sharded training path launched a kernel: {out['launches']}")
+
+    # the CLI: two ranks under torch.distributed.run, then a relaunch
+    cli_dir = ROOT / "build" / "mesh_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = {}
+    for steps in (3, 5):
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
+             "--master-addr", "localhost", "--master-port", str(free_port()),
+             "-m", "repro_torch.launch.train", *CLI_MESH, "--steps", str(steps),
+             "--ckpt-dir", str(cli_dir)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        lines = proc.stdout.splitlines()
+        cli[str(steps)] = {"s": time.perf_counter() - t1, "lines": lines}
+        for line in lines:
+            log(f"mesh cli on {card}: {line}")
+        if proc.returncode != 0 or not lines or lines[-1] != "[train] done":
+            raise RuntimeError(f"mesh CLI --steps {steps} failed ({proc.returncode}): "
+                               f"{proc.stderr[-2000:]}")
+        logged = [float(line.split("loss=")[1].split()[0]) for line in lines
+                  if line.startswith("[train] step=")]
+        if len(logged) != (3 if steps == 3 else 2) or not all(map(math.isfinite, logged)):
+            raise RuntimeError(f"mesh CLI --steps {steps}: losses logged {logged}")
+        if not lines[0].startswith(f"[train] mesh {{'data': {world}, 'model': 1}}"):
+            raise RuntimeError(f"mesh CLI --steps {steps}: no mesh line: {lines[:1]}")
+    if "[train] resumed from step 3" not in cli["5"]["lines"]:
+        raise RuntimeError("the mesh CLI's relaunch did not resume from step 3")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    out["cli"] = cli
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ---- phase 9: the plan search on the card ------------------------------------
 
 
@@ -2584,6 +2947,11 @@ def main(argv: list[str] | None = None) -> int:
     tp = tp_path(torch, card)
     log(f"tp path: {tp['seconds']:.1f} s, launches {tp['launches']}")
 
+    # phase 12: sharded training, each rank's launch counts zeroed just
+    # before its path and read just after (the path runs none of the kernels)
+    mesh_train = mesh_path(torch, card)
+    log(f"mesh path: {mesh_train['seconds']:.1f} s, launches {mesh_train['launches']}")
+
     head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
     head.update({r["kernel"]: r for r in rows
                  if (r["M"], r["K"], r["N"]) == HEADLINE_PREFILL and r["parent_ms"] is not None})
@@ -2609,12 +2977,13 @@ def main(argv: list[str] | None = None) -> int:
             "launches": (launches[name] + moe_launches[name]
                          + sum(c[name] for c in fam_launches.values())
                          + sum(c[name] for c in path_launches.values())
-                         + tp["launches"][name]),
+                         + tp["launches"][name] + mesh_train["launches"][name]),
             "launches_by_path": {"qwen1.5-110b": launches[name],
                                  "moonshot-v1-16b-a3b": moe_launches[name],
                                  **{a: c[name] for a, c in fam_launches.items()},
                                  **{a: c[name] for a, c in path_launches.items()},
-                                 "tp": tp["launches"][name]},
+                                 "tp": tp["launches"][name],
+                                 "mesh_train": mesh_train["launches"][name]},
             "max_abs_err": max(c[2] for c in checks if c[0] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2659,7 +3028,7 @@ def main(argv: list[str] | None = None) -> int:
             "families": fam_out, **path_out, "path_seconds": path_s,
             "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
-            "attention_checks": attn_checks, "training": training, "tp": tp,
+            "attention_checks": attn_checks, "training": training, "tp": tp, "mesh_train": mesh_train,
             "checks": len(checks), "seconds": time.perf_counter() - t_start,
         }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

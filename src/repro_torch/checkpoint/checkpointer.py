@@ -17,8 +17,16 @@
 
 :meth:`Checkpointer.restore` rebuilds the tree in the structure, dtypes
 and devices of ``like`` (:func:`tree.from_numpy`, as
-``convert.state_from_numpy`` does).  Restoring under another sharding waits for
-ROADMAP queue 10 (tensor parallelism).
+``convert.state_from_numpy`` does).
+
+* **elastic**: arrays are saved whole.  Given ``shardings`` (a tree of
+  ``runtime.sharding.NamedSharding`` beside the tree, None for a whole
+  leaf), :meth:`Checkpointer.restore` keeps each rank's shard of every
+  leaf, whatever mesh wrote the step (the reference's ``device_put`` onto
+  a ``NamedSharding``), and :meth:`Checkpointer.save` gathers the ranks'
+  shards and writes from the mesh's rank 0 alone; every rank calls it.
+  So a step written mesh-free restores onto a mesh, and the other way
+  round.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..tree import from_numpy, to_numpy, tree_leaves
+from ..tree import from_numpy, to_numpy, tree_leaves, tree_map
 
 __all__ = ["Checkpointer"]
 
@@ -61,15 +69,25 @@ class Checkpointer:
         return os.path.join(self.directory, f"step_{step:08d}")
 
     # ---- save -----------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
+    def save(self, step: int, tree: Any, extra: dict | None = None,
+             shardings: Any | None = None) -> str:
         """Publish step ``step`` holding ``tree`` (torch or numpy leaves, in
-        dicts and lists) and ``extra`` (JSON); returns its path."""
-        return self._write(step, to_numpy(tree), extra or {})
+        dicts and lists) and ``extra`` (JSON); returns its path.  With
+        ``shardings`` the leaves are a mesh rank's shards (module
+        docstring): every rank calls this, rank 0 writes."""
+        host_tree = _whole(tree, shardings)
+        if host_tree is None:
+            return self._path(step)
+        return self._write(step, host_tree, extra or {})
 
-    def save_async(self, step: int, tree: Any, extra: dict | None = None) -> None:
-        """Copy ``tree`` to host memory, then write it in the background."""
+    def save_async(self, step: int, tree: Any, extra: dict | None = None,
+                   shardings: Any | None = None) -> None:
+        """Copy ``tree`` to host memory (gathered whole, with
+        ``shardings``), then write it in the background."""
         self.wait()  # one outstanding write at a time
-        host_tree = to_numpy(tree)  # the snapshot, before returning
+        host_tree = _whole(tree, shardings)  # the snapshot, before returning
+        if host_tree is None:
+            return
         self._thread = threading.Thread(
             target=self._write_guarded, args=(step, host_tree, extra or {}),
             daemon=True,
@@ -136,12 +154,9 @@ class Checkpointer:
                 ) -> tuple[Any, dict]:
         """Step ``step`` in the structure of ``like`` (a port tree: a list
         takes its elements from the stored array's leading axis; each leaf
-        takes ``like``'s dtype and device).  Returns ``(tree, extra)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring under a sharding is not ported yet: ROADMAP queue 10 "
-                "(tensor parallelism)"
-            )
+        takes ``like``'s dtype and device).  With ``shardings`` each leaf is
+        this rank's shard of the stored array (module docstring).  Returns
+        ``(tree, extra)``."""
         path = self._path(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -151,7 +166,21 @@ class Checkpointer:
             return like, manifest["extra"]
         with np.load(os.path.join(path, "arrays.npz")) as data:
             stored = _unflatten({k: data[k] for k in data.files})
-        return from_numpy(stored, like, _leaf), manifest["extra"]
+        if shardings is None:
+            return from_numpy(stored, like, _leaf), manifest["extra"]
+        paired = tree_map(lambda leaf, sh: (leaf, sh), like, shardings)
+        return from_numpy(stored, paired, _shard_leaf), manifest["extra"]
+
+
+def _whole(tree, shardings):
+    """``tree`` in host memory, in the reference's layout; with
+    ``shardings`` its shards gathered whole, and None on every rank but
+    the mesh's rank 0 (a collective: every rank calls it)."""
+    if shardings is None:
+        return to_numpy(tree)
+    whole = tree_map(lambda t, sh: t if sh is None else sh.gather(t), tree, shardings)
+    mesh = next(sh.mesh for sh in tree_leaves(shardings) if sh is not None)
+    return to_numpy(whole) if mesh.rank == 0 else None
 
 
 def _unflatten(flat: dict[str, np.ndarray]) -> dict:
@@ -164,6 +193,11 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
             node = node.setdefault(k, {})
         node[last] = arr
     return tree
+
+
+def _shard_leaf(arr: np.ndarray, pair) -> torch.Tensor:
+    like_leaf, sh = pair
+    return _leaf(arr if sh is None else arr[sh.slices(arr.shape)], like_leaf)
 
 
 def _leaf(arr: np.ndarray, like_leaf) -> torch.Tensor:

@@ -1,6 +1,10 @@
-"""The serving mesh: the process group that tensor-parallel serving runs over.
+"""The meshes: the process groups that serving and training run over.
 
-Counterpart of the reference's ``launch/mesh.py::make_serving_mesh``.  The
+Counterpart of the reference's ``launch/mesh.py``: :func:`make_serving_mesh`
+(tensor-parallel serving) and the training meshes, :func:`make_local_mesh`
+and :func:`make_production_mesh` (:class:`TrainingMesh`, below).
+
+The serving mesh.  The
 reference is single-controller (one process, a ``(1, tp)`` device mesh);
 the port is SPMD over processes on ``torch.distributed``: one process a
 rank, every rank running the same engine on the same inputs and holding
@@ -27,6 +31,8 @@ from __future__ import annotations
 
 import datetime
 import gc
+import itertools
+import math
 from typing import Any, Callable
 
 import torch
@@ -35,8 +41,12 @@ import torch.distributed as dist
 __all__ = [
     "BACKEND_RULE",
     "ServingMesh",
+    "TrainingMesh",
     "choose_backend",
     "init_serving_world",
+    "make_local_mesh",
+    "make_mesh",
+    "make_production_mesh",
     "make_serving_mesh",
 ]
 
@@ -70,6 +80,7 @@ def init_serving_world(rank: int, world_size: int, init_method: str = "env://",
         timeout=datetime.timedelta(seconds=timeout_s),
     )
     _MESHES.clear()  # meshes of an earlier process group hold its groups
+    _TRAINING_MESHES.clear()
     return backend
 
 
@@ -179,3 +190,159 @@ def make_serving_mesh(tp: int, device: str | torch.device | None = None) -> Serv
     _MESHES[key] = mesh
     return mesh
 
+
+# ---- the training meshes ------------------------------------------------------
+
+
+class TrainingMesh:
+    """A mesh of ranks with named axes, seen from one rank.
+
+    ``axis_names`` and ``shape`` (axis -> size) are what the reference's
+    mesh offers the placement rules (``runtime.sharding``); ``coord`` is
+    this rank's index on each axis.  Ranks are laid out row-major over the
+    axes, as ``jax.make_mesh`` lays out devices: the last axis varies
+    fastest.  The mesh holds one process group for every set of axes of
+    more than one rank (the ranks that share this rank's coordinates on
+    the other axes), made by every rank at construction, so the "fsdp"
+    reductions run over the ranks that share a model coordinate.  One
+    process without a process group is a mesh of size 1 whose collectives
+    are the identity.  The groups take the backend of the world
+    (:data:`BACKEND_RULE`); gloo takes CUDA tensors as they are."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} for axes {axis_names}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(axis_names, shape))
+        self.size = math.prod(shape)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.coord = self.coords(self.rank)
+        self._groups: dict[frozenset, tuple] = {}
+        self._extra: dict[tuple, Any] = {}
+        if self.size > 1:
+            for r in range(1, len(axis_names) + 1):
+                for axes in itertools.combinations(axis_names, r):
+                    self._make_group(axes)
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """The coordinates of global rank ``rank``."""
+        out = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coord: dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coord[a]
+        return r
+
+    def _make_group(self, axes: tuple[str, ...]) -> None:
+        """The groups over ``axes``, one for each coordinate of the other
+        axes: every rank makes every group, in the same order."""
+        if math.prod(self.shape[a] for a in axes) == 1:
+            return
+        others = [a for a in self.axis_names if a not in axes]
+        mine = None
+        for fixed in itertools.product(*(range(self.shape[a]) for a in others)):
+            base = dict(zip(others, fixed))
+            members = sorted(self.rank_of({**base, **dict(zip(axes, c))})
+                             for c in itertools.product(*(range(self.shape[a]) for a in axes)))
+            group = (dist.group.WORLD if len(members) == dist.get_world_size()
+                     else dist.new_group(members))
+            if self.rank in members:
+                mine = (group, members)
+        self._groups[frozenset(axes)] = mine
+
+    def group(self, axes) -> tuple | None:
+        """``(process group, its members' global ranks ascending)`` over the
+        axes ``axes``; None where they hold one rank."""
+        return self._groups.get(frozenset(axes))
+
+    def all_gather(self, t: torch.Tensor, axes: tuple[str, ...], dim: int) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in the order of their
+        index over ``axes``, major to minor in the order given."""
+        g = self.group(axes)
+        if g is None:
+            return t
+        group, members = g
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in members]
+        dist.all_gather(parts, t, group=group)
+
+        def index(r: int) -> int:
+            c, i = self.coords(r), 0
+            for a in axes:
+                i = i * self.shape[a] + c[a]
+            return i
+
+        order = sorted(range(len(members)), key=lambda i: index(members[i]))
+        return torch.cat([parts[i] for i in order], dim=dim)
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced (``"sum"`` or ``"max"``) over the ranks of ``axes``,
+        in place; returns it."""
+        g = self.group(axes)
+        if g is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                            group=g[0])
+        return t
+
+    def subgroups(self, member_lists: list[list[int]]) -> list:
+        """A process group of each list of global ranks, made at the first
+        call and kept: every rank of the mesh calls this with the same
+        lists in the same order (making a group is collective)."""
+        out = []
+        for members in member_lists:
+            key = tuple(sorted(members))
+            if key not in self._extra:
+                self._extra[key] = dist.new_group(list(key))
+            out.append(self._extra[key])
+        return out
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier()
+
+    def __repr__(self) -> str:
+        return f"TrainingMesh({self.shape}, rank {self.rank} at {self.coord})"
+
+
+_TRAINING_MESHES: dict[tuple, TrainingMesh] = {}
+
+
+def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]) -> TrainingMesh:
+    """The mesh of ``shape`` over the ranks that were started (one process
+    without a process group is one rank); raises where their number is
+    not the mesh's size.  Every rank calls it at the same point (it makes
+    groups); a second call with the same arguments returns the same mesh."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"a {shape} {axis_names} mesh needs {math.prod(shape)} ranks; {world} "
+            f"rank(s) were started (torchrun --nproc-per-node {math.prod(shape)})")
+    key = (shape, axis_names)
+    if key not in _TRAINING_MESHES:
+        _TRAINING_MESHES[key] = TrainingMesh(shape, axis_names)
+    return _TRAINING_MESHES[key]
+
+
+def make_local_mesh(data: int | None = None, model: int = 1) -> TrainingMesh:
+    """A ``("data", "model")`` mesh over the ranks that were started: all of
+    them on "data" unless ``data`` or ``model`` say otherwise."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    data = data if data is not None else max(1, world // model)
+    return make_mesh((data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> TrainingMesh:
+    """16 x 16 = 256 ranks a pod; 2 pods = 512 ranks when ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {shape} {axes} needs {math.prod(shape)} ranks; "
+            f"{world} rank(s) were started")
+    return make_mesh(shape, axes)

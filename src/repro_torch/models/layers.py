@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.packed_linear import LinearSpec, apply_linear
+from ..runtime.act_sharding import constrain
 from .config import ModelConfig
 
 __all__ = [
@@ -124,14 +125,16 @@ def attention(
             raise ValueError("fused wqkv is self-attention only")
         qkv = apply_linear(params["wqkv"], x, spec)
         q, k, v = qkv.split((nh * hd, nkv * hd, nkv * hd), dim=-1)
-        q = q.reshape(b, s, nh, hd)
-        k = k.reshape(b, s, nkv, hd)
-        v = v.reshape(b, s, nkv, hd)
+        q = constrain(q.reshape(b, s, nh, hd), "heads")
+        k = constrain(k.reshape(b, s, nkv, hd), "heads")
+        v = constrain(v.reshape(b, s, nkv, hd), "heads")
     else:
         src = x if kv_x is None else kv_x
-        q = apply_linear(params["wq"], x, spec).reshape(b, s, nh, hd)
-        k = apply_linear(params["wk"], src, spec).reshape(b, src.shape[1], nkv, hd)
-        v = apply_linear(params["wv"], src, spec).reshape(b, src.shape[1], nkv, hd)
+        q = constrain(apply_linear(params["wq"], x, spec).reshape(b, s, nh, hd), "heads")
+        k = constrain(apply_linear(params["wk"], src, spec)
+                      .reshape(b, src.shape[1], nkv, hd), "heads")
+        v = constrain(apply_linear(params["wv"], src, spec)
+                      .reshape(b, src.shape[1], nkv, hd), "heads")
     if kv_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -187,6 +190,8 @@ def attention(
         out = _chunked_causal_attention(q, k, v, chunk, *window)
     else:
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * hd**-0.5
+        if cache is not None:
+            scores = constrain(scores, "scores_decode")
         if mask is not None:
             scores = scores + mask
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
@@ -318,12 +323,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 def mlp(params: Params, x: torch.Tensor, spec: LinearSpec) -> torch.Tensor:
     if "upgate" in params:
         # engine-build fused up|gate: one matmul, bit-identical per column
-        up, gate = apply_linear(params["upgate"], x, spec).chunk(2, dim=-1)
+        ug = constrain(apply_linear(params["upgate"], x, spec), "hidden")
+        up, gate = ug.chunk(2, dim=-1)
         return apply_linear(params["down"], F.silu(gate) * up, spec)
     if "gate" not in params:  # 2-matrix GELU variant
         return gelu_mlp(params, x, spec)
-    up = apply_linear(params["up"], x, spec)
-    gate = apply_linear(params["gate"], x, spec)
+    up = constrain(apply_linear(params["up"], x, spec), "hidden")
+    gate = constrain(apply_linear(params["gate"], x, spec), "hidden")
     return apply_linear(params["down"], F.silu(gate) * up, spec)
 
 
@@ -337,5 +343,5 @@ def init_gelu_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 def gelu_mlp(params: Params, x: torch.Tensor, spec: LinearSpec) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
-    hidden = apply_linear(params["up"], x, spec)
+    hidden = constrain(apply_linear(params["up"], x, spec), "hidden")
     return apply_linear(params["down"], F.gelu(hidden, approximate="tanh"), spec)

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.packed_linear import apply_linear
 from ..device import resolve_device
+from ..runtime.act_sharding import checkpoint_contexts, constrain, constrain_group_params
 from .config import ModelConfig
 from .layers import (
     Params,
@@ -138,9 +139,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: torch.dtype = torch.floa
     with the reference's scales: N(0, 1/d_in) projections, N(0, 0.02**2)
     embeddings, unit norms, zero biases, Mamba's conv at N(0, 0.01) with
     ``a_log = log(1..d_state)``; the encoder's groups (encdec) and
-    ``patch_proj`` (vlm) after the decoder's."""
+    ``patch_proj`` (vlm) after the decoder's.  ``device="meta"`` gives the
+    tree's shapes alone."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # on the meta device (shapes only) there is no generator to seed
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
     groups = [_init_group(gen, cfg, dtype, dev, cross_attn=cfg.family == "encdec")
               for _ in range(cfg.n_groups)]
@@ -324,16 +327,30 @@ def _run_group(gp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
                cache: Params | None, encoder_out: torch.Tensor | None,
                causal: bool = True, valid: torch.Tensor | None = None,
                page_table: torch.Tensor | None = None):
-    """:func:`_apply_group`, under ``cfg.remat``'s checkpoint when it is
+    """:func:`_group_body`, under ``cfg.remat``'s checkpoint when it is
     differentiated without a cache (module docstring)."""
     if (cache is not None or cfg.remat == "none" or not torch.is_grad_enabled()
             or not (x.requires_grad or _any_requires_grad(gp))):
-        return _apply_group(gp, x, cfg, positions, cache, encoder_out, causal,
-                            valid=valid, page_table=page_table)
+        return _group_body(gp, x, cfg, positions, cache, encoder_out, causal,
+                           valid=valid, page_table=page_table)
     if cfg.remat not in ("dots", "full"):
         raise ValueError(f"remat {cfg.remat!r} not in ('none', 'dots', 'full')")
-    return checkpoint(_apply_group, gp, x, cfg, positions, None, encoder_out, causal,
-                      valid, page_table, use_reentrant=False)
+    return checkpoint(_group_body, gp, x, cfg, positions, None, encoder_out, causal,
+                      valid, page_table, use_reentrant=False,
+                      context_fn=checkpoint_contexts)
+
+
+def _group_body(gp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                cache: Params | None, encoder_out: torch.Tensor | None,
+                causal: bool = True, valid: torch.Tensor | None = None,
+                page_table: torch.Tensor | None = None):
+    """:func:`_apply_group` under the activation-sharding policy, as the
+    reference's scan body: the group's weights re-pinned (gathered whole
+    under a training mesh), the residual stream constrained."""
+    y, new_c, aux = _apply_group(constrain_group_params(gp), constrain(x, "residual"), cfg,
+                                 positions, cache, encoder_out, causal, valid=valid,
+                                 page_table=page_table)
+    return constrain(y, "residual"), new_c, aux
 
 
 def _sinusoidal(length: int, d: int, device: torch.device) -> torch.Tensor:

@@ -48,25 +48,42 @@ def adamw_init(params) -> dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shardings=None):
     """Scale the gradient tree to a global L2 norm of at most ``max_norm``;
-    returns ``(grads, norm before clipping)``."""
+    returns ``(grads, norm before clipping)``.  ``shardings``: the
+    ``NamedSharding`` tree of a training mesh whose ranks hold shards of
+    ``grads``; each rank then sums the squares of the shards it holds the
+    first copy of (a replicated shard counts once) and the sums are
+    reduced over the mesh."""
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+    if shardings is None:
+        sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+    else:
+        specs = tree_leaves(shardings)
+        sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device) + sum(
+            torch.sum(torch.square(g.to(torch.float32)))
+            for g, s in zip(leaves, specs) if s.owns())
+        mesh = specs[0].mesh
+        mesh.all_reduce(sq, mesh.axis_names)
+    gnorm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gnorm
 
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
-                 lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None):
+                 lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                 shardings=None):
     """One AdamW step.  Returns ``(params, state, metrics)``: ``params`` and
     the moments updated in place, ``state["step"]`` a new tensor, metrics
-    ``grad_norm`` (before clipping; 0 without clipping) and ``lr``."""
+    ``grad_norm`` (before clipping; 0 without clipping) and ``lr``.  Under
+    a training mesh the leaves are this rank's shards and ``shardings``
+    their placement: the update is elementwise, and only the global norm
+    reduces over the ranks (:func:`clip_by_global_norm`)."""
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     dev = state["step"].device
     if cfg.grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shardings)
     else:
         gnorm = torch.zeros((), dtype=torch.float32, device=dev)
     step = state["step"] + 1

@@ -15,7 +15,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["tree_leaves", "tree_map", "to_numpy", "from_numpy"]
+__all__ = ["keyed_leaves", "reference_key", "tree_leaves", "tree_map", "to_numpy",
+           "from_numpy"]
 
 
 def tree_leaves(tree) -> list:
@@ -26,6 +27,27 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, list):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def reference_key(path: tuple) -> str:
+    """The reference's key of a port path: its dict keys joined by "/"
+    (list indices, which stack in the reference, add nothing)."""
+    return "/".join(str(p) for p in path if not isinstance(p, int))
+
+
+def keyed_leaves(tree, path: tuple = (), stack: tuple = ()):
+    """``(path, reference key, reference shape, list depth, leaf)`` of every
+    leaf of a port tree, in :func:`tree_leaves`' order; the reference shape
+    puts the lengths of the lists above a leaf in front of its shape, as
+    :func:`to_numpy` stacks them."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from keyed_leaves(v, path + (k,), stack)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from keyed_leaves(v, path + (i,), stack + (len(tree),))
+    else:
+        yield path, reference_key(path), (*stack, *tree.shape), len(stack), tree
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -34,11 +34,13 @@ from repro_torch.checkpoint import checkpointer as C
 from repro_torch.convert import state_to_numpy
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import build_state
 from repro_torch.models.registry import get_config as t_get_config
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import HeartbeatMonitor, Heartbeat, RestartPolicy
+from repro_torch.runtime.sharding import NamedSharding
 from repro_torch.tree import tree_leaves
 from repro_torch.tuning import plandb
 
@@ -135,8 +137,11 @@ def test_checkpointer_atomicity_gc_and_async(tmp_path):
     tree, _ = ck.restore(7, {"w": [torch.empty(4), torch.empty(4, dtype=torch.float64)]})
     assert torch.equal(tree["w"][0], torch.ones(4))
     assert tree["w"][1].dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        ck.restore(7, {"w": []}, shardings={})
+    # restore under a placement: a mesh of one rank holds every leaf whole
+    mesh = make_local_mesh()
+    tree, _ = ck.restore(7, {"w": [torch.empty(4), torch.empty(4)]}, shardings={
+        "w": [NamedSharding(mesh, ("data",)), None]})
+    assert torch.equal(tree["w"][0], torch.ones(4)) and torch.equal(tree["w"][1], torch.zeros(4))
     with pytest.raises(ValueError, match="keep"):
         Checkpointer(str(tmp_path), keep=0)
 
@@ -249,7 +254,7 @@ def test_train_cli_smoke_finishes_and_resumes(tmp_path, capsys):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="queue 10"):
+    with pytest.raises(ValueError, match="needs 512 ranks; 1 rank"):
         train_cli.main(args + ["--mesh", "multi"])
 
 

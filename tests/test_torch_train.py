@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +69,8 @@ from repro_torch.launch.steps import (
     make_serve_step,
     make_train_step,
 )
-from repro_torch.launch.train import build_state
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.train import build_state, param_placement
 from repro_torch.models import transformer as TT
 from repro_torch.models.registry import get_config as t_get_config
 from repro_torch.optim import AdamWConfig
@@ -407,8 +409,20 @@ def test_qat_trains_and_mesh_raises():
     state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     assert all(not torch.equal(a, p) for a, p in zip(before, tree_leaves(state["params"])))
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        make_train_step(tcfg, AdamWConfig(), mesh=object())
+    # the mesh path: one process is a mesh of one rank, whose placed state
+    # takes the mesh-free step bit for bit (the 4-rank world of
+    # tests/test_torch_mesh_train.py holds the sharded step)
+    mesh = make_local_mesh()
+    placement = param_placement(tcfg, mesh)
+    meshed = build_state(tcfg, device="cpu", shardings=placement)
+    meshed, mm = make_train_step(tcfg, AdamWConfig(), mesh, grad_shardings=placement)(
+        meshed, {k: torch.from_numpy(v) for k, v in b.items()})
+    assert float(mm["loss"]) == float(m["loss"])
+    assert all(torch.equal(a, p) for a, p in zip(tree_leaves(meshed["params"]),
+                                                  tree_leaves(state["params"])))
+    # a mesh of more than one rank needs the state's placement
+    with pytest.raises(ValueError, match="needs grad_shardings"):
+        make_train_step(tcfg, AdamWConfig(), mesh=types.SimpleNamespace(size=4))
 
 
 def test_mlstm_gradient_finite_where_gates_overflow():
