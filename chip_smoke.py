@@ -21,7 +21,8 @@ anything in it fails:
    (2048, 163840), at M 1, 3, 7, 17, 33, and at the families' shapes
    (``FAMILY_SHAPES``: jamba's Mamba projections and experts, xlstm's
    N = 4 gates, h2o-danube's and whisper's lm_heads, N = 51866 among them)
-   at M 1, 4, 17, 64; then each kernel timed with CUDA
+   at M 1, 4, 17, 64, and at serve_lm's (``EXAMPLE_SHAPES``, the
+   example's d_model 256 model) at M 1, 4, 17, 32; then each kernel timed with CUDA
    events at the main path's decode (M=4) and prefill (M=64) shapes, beside
    its plain version, its bound and a library call, and at M=64 beside the
    M <= 16 kernel; at M=4 also by the replay of a CUDA graph of the same
@@ -190,6 +191,25 @@ anything in it fails:
     more.  A rank that fails or hangs (collectives time out after
     ``MESH_TIMEOUT_S``; the ranks are ended after ``MESH_DEADLINE_S``)
     fails the run.
+13. the examples and the dry run: ``examples/torch_quickstart.py``,
+    ``torch_serve_lm.py``, ``torch_snn_addpack.py`` and ``torch_train_lm.py``
+    (20 steps) as subprocesses on the card, side by side, each starting its
+    launch counts at 0 and printing them: quickstart's packed matmul equal
+    to the exact product through ``packed_matmul``, serve_lm's six runs with
+    int4_packed through ``int4_matmul``, dsp_packed through
+    ``packed_matmul`` and dsp_tuned through ``packed_matmul_prepacked``,
+    and each of those three runs served again in this process through the
+    plain versions (dsp_tuned on the plans the example printed), whose
+    greedy tokens must equal the kernels'; train_lm's loss falling; the dry run (``repro_torch.launch.dryrun``,
+    meta tensors) at full width: ``--packed-tp 8`` printing EXPERIMENTS.md's
+    figures for the three archs, qwen1.5-110b ``train_4k`` and
+    ``decode_32k`` on pod16x16 ok, their records printed; then the dry run
+    of h2o-danube-3-4b at full width, 2 layers, mesh-free, one train step
+    at 8 x 512 (``lower_cell(depth_groups=2)``) against the real step on
+    the card: its argument bytes equal to the real state's and batch's,
+    its FLOPs to ``FlopCounterMode``'s count of the real step, and its
+    predicted peak (arguments plus temp) printed beside
+    ``torch.cuda.max_memory_allocated()``.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -206,10 +226,13 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -267,6 +290,11 @@ FAMILY_SHAPES = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096), (4096, 1
                  (14336, 4096), (2048, 2048), (2048, 4), (3840, 960), (10240, 3840),
                  (3840, 32000), (1280, 5120), (1280, 51866)]
 FAMILY_ROWS = (1, 4, 17, 64)
+# phase 3: the serve_lm example's shapes (K, N) (d_model 256, k/v 128, d_ff
+# 1024, vocab 4096) at its rows: decode at 4 slots, prefill chunks of 4
+# slots x 8 tokens (1 and 17 each kernel's edge)
+EXAMPLE_SHAPES = [(256, 256), (256, 128), (256, 1024), (1024, 256), (256, 4096)]
+EXAMPLE_ROWS = (1, 4, 17, 32)
 # the families phase: each config at full width, its depth cut (whisper's
 # encoder, which the engine never runs, to 2 layers too), in these modes
 ALL_MODES = ("native", "int8", "int4_packed", "dsp_tuned", "dsp_packed")
@@ -2677,6 +2705,257 @@ def flash_qwen(torch, K, F, P, attn_checks: list) -> dict:
     return rows
 
 
+# ---- phase 13: the examples, the dry run, and the dry run against the card ----
+
+# the port's four examples, each a subprocess on the card (train_lm at 20
+# steps), run side by side; each prints its kernel launches (every
+# subprocess starts with its counts at 0)
+EXAMPLE_RUNS = (("torch_quickstart.py", ()), ("torch_serve_lm.py", ()),
+                ("torch_snn_addpack.py", ()), ("torch_train_lm.py", ("--steps", "20")))
+EXAMPLE_TIMEOUT_S = 300
+# serve_lm's packed runs and the wrapper each must launch
+EXAMPLE_NEED = {"int4_packed": "int4_matmul", "dsp_packed": "packed_matmul",
+                "dsp_tuned": "packed_matmul_prepacked"}
+# the dry run's --packed-tp 8 figures of EXPERIMENTS.md §Dry-run: GiB of
+# packed words a shard, GiB of replicated scales, MB a decode row
+PACKED_TP8 = {"qwen1.5-110b": ("25.60", "0.038", "40.10"),
+              "dbrx-132b": ("30.50", "0.068", "78.91"),
+              "jamba-v0.1-52b": ("11.94", "0.037", "38.76")}
+DRY_CELLS = (("qwen1.5-110b", "train_4k"), ("qwen1.5-110b", "decode_32k"))
+# the cell the card holds: phase 12's h2o-danube-3-4b at full width, 2
+# layers (depth_groups), mesh-free, one train step at 8 x 512
+DRY_CARD_GROUPS = 2
+
+
+def run_examples(torch, card: str) -> dict:
+    """The four examples as subprocesses on the card; each must exit 0 and
+    print its headline, quickstart's packed matmul equal the exact product
+    through ``packed_matmul``, serve_lm's six runs each packed mode through
+    its kernel, train_lm's loss fall over its 20 steps."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name), *args],
+                                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, args in EXAMPLE_RUNS}
+    outs, seconds = {}, {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name} exited {proc.returncode}: {err[-3000:]}")
+            outs[name] = out.splitlines()
+            for line in outs[name]:
+                log(f"  {name}: {line}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    launches: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    quick = outs["torch_quickstart.py"]
+    if "   packed matmul == exact int matmul: True" not in quick:
+        raise RuntimeError("quickstart: the packed matmul differs from the exact product")
+    counts = json.loads(next(ln for ln in quick if ln.startswith("   kernel launches:"))
+                        .split(":", 1)[1].split(" (")[0])
+    if sum(counts.values()) < 1:
+        raise RuntimeError(f"quickstart launched no packed_matmul kernel: {counts}")
+    add(counts)
+    serve = outs["torch_serve_lm.py"]
+    heads = [ln for ln in serve if ln.startswith("[serve_lm] quant=")]
+    if len(heads) != 6:
+        raise RuntimeError(f"serve_lm printed {len(heads)} of its 6 runs")
+    by_mode = {}
+    for ln in serve:
+        m = re.fullmatch(r"\[serve_lm\]\s+launches (\S+) (\{.*\})", ln)
+        if m:
+            by_mode[m[1]] = json.loads(m[2])
+            add(by_mode[m[1]])
+    for mode, wrapper in EXAMPLE_NEED.items():
+        n = sum(v for k, v in by_mode.get(mode, {}).items() if k.startswith(wrapper)
+                and (wrapper != "packed_matmul" or "prepacked" not in k))
+        if n < 1:
+            raise RuntimeError(f"serve_lm {mode} launched no {wrapper} kernel: {by_mode}")
+    snn = outs["torch_snn_addpack.py"]
+    if not any(ln.startswith("[snn] exact with 2 guard bits") for ln in snn):
+        raise RuntimeError("snn_addpack: no exact packed accumulation")
+    train = outs["torch_train_lm.py"]
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in train if "loss=" in ln]
+    if not (losses and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise RuntimeError(f"train_lm's loss did not fall: {losses}")
+    return {"seconds": seconds, "launches": launches, "serve_launches": by_mode,
+            "serve_lines": serve, "train_losses": losses, "headlines": {
+                "torch_quickstart.py": quick[-3:], "torch_serve_lm.py": heads,
+                "torch_snn_addpack.py": snn[-3:], "torch_train_lm.py": train[-1:]}}
+
+
+def serve_lm_against_plain(torch, ref, lines: list[str]) -> dict:
+    """Each packed run of serve_lm served again in this process through the
+    kernels' plain versions (``run(..., use_kernel=False)``; ``dsp_tuned`` on
+    the plans the subprocess printed): the greedy tokens must equal the
+    kernels' the subprocess printed, and the plain runs launch no kernel."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location("torch_serve_lm",
+                                                  ROOT / "examples" / "torch_serve_lm.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    printed = {}
+    for ln in lines:
+        m = re.fullmatch(r"\[serve_lm\]\s+(tokens (\S+) greedy|plans (\S+)) (.*)", ln)
+        if m:
+            printed[(m[1].split()[0], m[2] or m[3])] = json.loads(m[4])
+    t0 = time.perf_counter()
+    out = {}
+    for mode in EXAMPLE_NEED:
+        table = None
+        if mode == "dsp_tuned":
+            table = {p: ref.spec_from_name(n) for p, n in printed[("plans", mode)].items()}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            plain = ex.run(mode, None, "cuda", use_kernel=False, plan_table=table)
+        launched = {k: n for f in ex.WRAPPERS for k, n in f.variant_launches.items() if n}
+        if plain != printed[("tokens", mode)]:
+            raise RuntimeError(f"serve_lm {mode}: the kernels' tokens "
+                               f"{printed[('tokens', mode)]} != the plain versions' {plain}")
+        if launched:
+            raise RuntimeError(f"serve_lm {mode}: the plain run launched {launched}")
+        out[mode] = sum(len(t) for t in plain)
+    log(f"serve_lm against the plain versions: greedy tokens identical in "
+        f"{', '.join(f'{m} ({n} tokens)' for m, n in out.items())}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def dryrun_full_width(D) -> dict:
+    """The dry run's CLI in this process at full width: ``--packed-tp 8``
+    against EXPERIMENTS.md's figures, then each of ``DRY_CELLS`` on
+    pod16x16, which must be ok; the records are printed."""
+    import contextlib
+    import io
+
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = D.main(["--packed-tp", "8", "--out", str(out_dir)])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    if code != 0:
+        raise RuntimeError(f"dryrun --packed-tp 8 exited {code}")
+    for arch, (words, scales, net) in PACKED_TP8.items():
+        want = (f"[dryrun] {arch} packed tp=8: {words} GiB packed words/shard + {scales} GiB "
+                f"replicated scales, {net} MB interconnect per decode row")
+        if want not in lines:
+            raise RuntimeError(f"dryrun --packed-tp 8: no line {want!r}")
+    records = {}
+    for arch, shape in DRY_CELLS:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = D.main(["--arch", arch, "--shape", shape, "--out", str(out_dir)])
+        print(buf.getvalue(), end="", flush=True)
+        rec = json.loads((out_dir / f"{arch}__{shape}__pod16x16.json").read_text())
+        if code != 0 or not rec["ok"]:
+            raise RuntimeError(f"dryrun {arch} {shape}: {rec.get('error')}")
+        records[f"{arch} {shape}"] = dict(rec, seconds=time.perf_counter() - t0)
+    return records
+
+
+def dryrun_against_card(torch, D, PS, R, card: str) -> dict:
+    """One cell the card holds, built by ``lower_cell(depth_groups=...)``:
+    its argument bytes must equal the real state's and batch's on the card,
+    its FLOPs ``FlopCounterMode``'s count of the real step; its predicted
+    peak (arguments plus temp) is printed beside ``max_memory_allocated``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    shape = PS.ShapeSpec(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    lowered, cfg, _ = D.lower_cell(TRAIN_ARCH, "train_4k", False, depth_groups=DRY_CARD_GROUPS,
+                                   shape=shape, mesh=None)
+    dry = D.measure(lowered, None)
+    dry_s = time.perf_counter() - t0
+    del lowered
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    params = R.T.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    state = {"params": params, "opt": R.adamw_init(params)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                              device="cuda", dtype=torch.int32) for k in ("tokens", "labels")}
+    held = sum(t.numel() * t.element_size()
+               for t in R.tree_leaves(state) + list(batch.values()))
+    step = R.make_train_step(cfg, R.AdamWConfig())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        _, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = int(fc.get_total_flops())
+    mem = dry["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    out = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "dry_argument_bytes": mem["argument_size_in_bytes"], "card_argument_bytes": held,
+           "card_allocated_before_step": base, "dry_flops": dry["flops"], "card_flops": flops,
+           "dry_temp_bytes": mem["temp_size_in_bytes"], "dry_peak_bytes": predicted,
+           "card_peak_bytes": peak, "peak_ratio": predicted / peak, "loss": loss,
+           "dry_s": dry_s, "card": card}
+    log(f"dry run against the card: {TRAIN_ARCH} {cfg.n_layers} layers {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: argument bytes {mem['argument_size_in_bytes']} dry, {held} card; "
+        f"flops {dry['flops']} dry, {flops} card; peak {predicted / 1e9:.3f} GB dry "
+        f"(arguments + temp) against max_memory_allocated {peak / 1e9:.3f} GB "
+        f"(ratio {predicted / peak:.3f}); dry run {dry_s:.1f} s; {card}")
+    if mem["argument_size_in_bytes"] != held:
+        raise RuntimeError(f"dry-run argument bytes {mem['argument_size_in_bytes']} != the "
+                           f"card's state and batch {held}")
+    if dry["flops"] != flops:
+        raise RuntimeError(f"dry-run flops {dry['flops']} != FlopCounterMode on the card {flops}")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"the card's step gave loss {loss}")
+    del state, params, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_and_dryrun(torch, card: str) -> dict:
+    """Phase 13: (a) the examples on the card, (b) the dry run at full
+    width, (c) the dry run against the card."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import shapes as PS
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    R = types.SimpleNamespace(T=T, adamw_init=adamw_init, make_train_step=make_train_step,
+                              AdamWConfig=AdamWConfig, tree_leaves=tree_leaves)
+    t0 = time.perf_counter()
+    out = {"examples": run_examples(torch, card)}
+    log(f"examples: {time.perf_counter() - t0:.1f} s, launches {out['examples']['launches']}")
+    out["serve_lm_plain"] = serve_lm_against_plain(torch, ref, out["examples"]["serve_lines"])
+    t1 = time.perf_counter()
+    out["dryrun"] = dryrun_full_width(D)
+    log(f"dry run at full width: {time.perf_counter() - t1:.1f} s")
+    out["dryrun_card"] = dryrun_against_card(torch, D, PS, R, card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None, metavar="PATH",
@@ -2782,6 +3061,7 @@ def main(argv: list[str] | None = None) -> int:
     check_kernels(torch, K, ref, checks)
     check_geometries(torch, K, ref, checks, MOE_SHAPES, MOE_ROWS, "moe", 2)
     check_geometries(torch, K, ref, checks, FAMILY_SHAPES, FAMILY_ROWS, "families", 3)
+    check_geometries(torch, K, ref, checks, EXAMPLE_SHAPES, EXAMPLE_ROWS, "serve_lm", 4)
     rows = time_kernels(torch, K, ref, checks)
     bad = [c for c in checks if c[2] != 0]
     for c in bad:
@@ -2951,6 +3231,15 @@ def main(argv: list[str] | None = None) -> int:
     # before its path and read just after (the path runs none of the kernels)
     mesh_train = mesh_path(torch, card)
     log(f"mesh path: {mesh_train['seconds']:.1f} s, launches {mesh_train['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 13: the four examples on the card (each subprocess's launches,
+    # from 0, read from its output), the dry run at full width, and the dry
+    # run against the card
+    phase13 = examples_and_dryrun(torch, card)
+    ex_launches = phase13["examples"]["launches"]
+    log(f"phase 13: {phase13['seconds']:.1f} s")
 
     head = {r["kernel"]: r for r in rows if (r["M"], r["K"], r["N"]) == HEADLINE}
     head.update({r["kernel"]: r for r in rows
@@ -2977,13 +3266,15 @@ def main(argv: list[str] | None = None) -> int:
             "launches": (launches[name] + moe_launches[name]
                          + sum(c[name] for c in fam_launches.values())
                          + sum(c[name] for c in path_launches.values())
-                         + tp["launches"][name] + mesh_train["launches"][name]),
+                         + tp["launches"][name] + mesh_train["launches"][name]
+                         + ex_launches.get(name, 0)),
             "launches_by_path": {"qwen1.5-110b": launches[name],
                                  "moonshot-v1-16b-a3b": moe_launches[name],
                                  **{a: c[name] for a, c in fam_launches.items()},
                                  **{a: c[name] for a, c in path_launches.items()},
                                  "tp": tp["launches"][name],
-                                 "mesh_train": mesh_train["launches"][name]},
+                                 "mesh_train": mesh_train["launches"][name],
+                                 "examples": ex_launches.get(name, 0)},
             "max_abs_err": max(c[2] for c in checks if c[0] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3029,6 +3320,7 @@ def main(argv: list[str] | None = None) -> int:
             "agreement": agree,
             "paper": paper_rows, "snn": snn, "attention": attn, "plan_search": search,
             "attention_checks": attn_checks, "training": training, "tp": tp, "mesh_train": mesh_train,
+            "phase13": phase13,
             "checks": len(checks), "seconds": time.perf_counter() - t_start,
         }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -35,6 +35,7 @@ from .quantize import quantize_signed, zero_point_correction
 
 __all__ = [
     "quantize_for_serving",
+    "quantize_params_for_serving",
     "fuse_projection_weights",
     "dequantize_packed",
     "materialize_weight",
@@ -334,6 +335,17 @@ def _convert_tree(params, targets: dict, convert, post=None):
         return out
 
     return walk(params)
+
+
+def quantize_params_for_serving(params, min_dim: int = MIN_DIM, prepack: bool = False):
+    """The reference's public name for nibble packing: every large matmul
+    weight (MoE expert stacks split first) as int4 nibbles and per-column
+    scales.  ``prepack=False`` (the default) stores nibbles and scales only,
+    the checkpoint/HBM density representation; ``prepack=True`` adds the
+    f32 grid of the CPU shortcut where it is exact.  It is
+    :func:`quantize_for_serving` in ``"int4_packed"`` under the reference's
+    signature, and runs on meta tensors too (``launch.dryrun``)."""
+    return quantize_for_serving(params, "int4_packed", min_dim=min_dim, prepack=prepack)
 
 
 def quantize_for_serving(params, mode: str = "int4_packed",

@@ -41,7 +41,7 @@ DESIGNS = {
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     dev = torch.device(ap.parse_args(argv).device)
     for design, (dtype, emulate) in DESIGNS.items():
         rng = np.random.default_rng(0)

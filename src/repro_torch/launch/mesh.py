@@ -48,6 +48,7 @@ __all__ = [
     "make_mesh",
     "make_production_mesh",
     "make_serving_mesh",
+    "production_mesh_shape",
 ]
 
 BACKEND_RULE = ("nccl when each rank has a GPU of its own; gloo when ranks "
@@ -288,6 +289,13 @@ class TrainingMesh:
                             group=g[0])
         return t
 
+    def broadcast(self, t: torch.Tensor, src: int, group) -> torch.Tensor:
+        """``t`` broadcast from global rank ``src`` over ``group`` (one of
+        :meth:`subgroups`, or the first item of :meth:`group`), in place;
+        returns it."""
+        dist.broadcast(t, src=src, group=group)
+        return t
+
     def subgroups(self, member_lists: list[list[int]]) -> list:
         """A process group of each list of global ranks, made at the first
         call and kept: every rank of the mesh calls this with the same
@@ -336,10 +344,18 @@ def make_local_mesh(data: int | None = None, model: int = 1) -> TrainingMesh:
     return make_mesh((data, model), ("data", "model"))
 
 
+def production_mesh_shape(multi_pod: bool = False) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The production mesh's shape and axes, without a world: (16, 16)
+    ("data", "model"), or (2, 16, 16) ("pod", "data", "model") over two
+    pods (``launch.dryrun`` lays its meshes out by it)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> TrainingMesh:
     """16 x 16 = 256 ranks a pod; 2 pods = 512 ranks when ``multi_pod``."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_mesh_shape(multi_pod)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != math.prod(shape):
         raise ValueError(

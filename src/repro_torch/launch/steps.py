@@ -22,8 +22,11 @@ ranks; the loss is the mean over the fsdp ranks of their batch shards'
 means, which is the mean over the global batch.  The global norm and the
 compression scales reduce over the mesh (``optim.adamw``,
 ``runtime.compression``); the update is elementwise on the shards.  The
-MoE load-balance loss and expert capacity are each data shard's, as in
-data-parallel training.  A mesh of one rank is the mesh-free step.
+MoE load-balance loss and expert capacity are the global batch's, as the
+reference's ``jit`` computes them: the policy tells ``models.moe`` that
+the batch is split over the fsdp ranks (``act_sharding.data_shards``),
+and the MoE layer reduces its statistics over them.  A mesh of one rank
+is the mesh-free step.
 """
 
 from __future__ import annotations
@@ -116,15 +119,20 @@ def cast_for_compute(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return p
 
 
+def _splits(mesh, batch: dict[str, torch.Tensor]) -> bool:
+    """Whether :func:`shard_batch` splits ``batch`` over the fsdp ranks."""
+    return batch_pspec(mesh, batch["tokens"].shape[0])[0] is not None
+
+
 @contextlib.contextmanager
-def _placed(mesh, params, shardings):
+def _placed(mesh, params, shardings, batch_split: bool = False):
     """``params`` for a forward: as they are without a mesh; under one the
     leaves outside the groups gathered whole, and each group's gathered in
     its forward by the policy installed for the block."""
     if mesh is None:
         yield params
         return
-    with activation_sharding(mesh, shardings["groups"][0]):
+    with activation_sharding(mesh, shardings["groups"][0], batch_split=batch_split):
         yield _gathered(params, shardings, None)
 
 
@@ -155,7 +163,7 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict[str, torch.Tensor], mes
         loss, metrics = loss_fn(tree_map(lambda p: cast_for_compute(p, dtype), params),
                                 cfg, batch)
     else:
-        with activation_sharding(mesh, shardings["groups"][0], dtype):
+        with activation_sharding(mesh, shardings["groups"][0], dtype, _splits(mesh, batch)):
             loss, metrics = loss_fn(_gathered(params, shardings, dtype), cfg,
                                     shard_batch(batch, mesh), mesh)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -216,7 +224,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, group_shardings=None):
     def prefill_step(params, batch):
         kw: dict[str, Any] = {}
         rows = batch["tokens"].shape[0]
-        with _placed(mesh, params, group_shardings) as params:
+        split = mesh is not None and _splits(mesh, batch)
+        with _placed(mesh, params, group_shardings, split) as params:
             if mesh is not None:
                 batch = shard_batch(batch, mesh)
             if cfg.family == "encdec":

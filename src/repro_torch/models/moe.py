@@ -21,6 +21,18 @@ and an expert with none is skipped: at most ``T·k`` rows in all, and no
 launch for an idle expert.  The per-expert row counts cross to the host
 once per MoE layer (:data:`HOST_READS` counts those reads).
 
+Under a training mesh whose fsdp ranks each run a shard of the batch
+(``runtime.act_sharding.data_shards``) the capacity path computes what the
+reference's ``jit`` computes over the global batch.  ``cap`` takes the
+global token count (the rank's ``T`` times the fsdp ranks), and an
+assignment keeps its rank in the global stable sort: a shard's rows follow
+those of the lower fsdp indices (``batch_pspec`` splits the batch major to
+minor over ``fsdp_axes``), so an expert keeps ``clamp(cap - lower, 0,
+count)`` of its local assignments, ``lower`` its assignments on the lower
+ranks (one all-gather of the ``(E,)`` counts).  ``density`` and
+``router_prob`` are the means over the fsdp ranks of the shards' means
+(:class:`_MeanOverShards`), and ``aux`` is taken of those global means.
+
 Weights: ``router`` ``{"w": (d, E)}`` stays float; ``up``/``gate``
 ``(E, d, f)`` and ``down`` ``(E, f, d)``.  A stacked tensor (``native``)
 is multiplied per expert in the compute dtype; per-expert leaves
@@ -31,10 +43,14 @@ own plan.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..core.packed_linear import LinearSpec, apply_linear
+from ..runtime.act_sharding import data_shards
+from ..runtime.sharding import fsdp_axes
 from .config import ModelConfig
 from .layers import Params
 
@@ -61,6 +77,49 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     }
 
 
+class _MeanOverShards(torch.autograd.Function):
+    """The mean over the fsdp ranks of each rank's ``x``: the global
+    batch's mean, the shards being of equal size.  Every rank then computes
+    the same function of it, and the loss is the mean over the ranks, so
+    each rank holds a part of the mean's gradient: the backward sums the
+    parts and hands each rank 1/n of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, math.prod(mesh.shape[a] for a in fsdp_axes(mesh))
+        return mesh.all_reduce(x.detach().clone(), fsdp_axes(mesh)) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), fsdp_axes(ctx.mesh)) / ctx.n, None
+
+
+def _lower_counts(mesh, counts: torch.Tensor) -> torch.Tensor:
+    """Each expert's assignments on the fsdp ranks below this one (major to
+    minor over ``fsdp_axes``), from one all-gather of the ``(E,)`` counts."""
+    axes = fsdp_axes(mesh)
+    every = mesh.all_gather(counts[None], axes, 0)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coord[a]
+    return every[:idx].sum(dim=0)
+
+
+def _dispatch(flat_e: torch.Tensor, e: int, cap: int, mesh) -> tuple:
+    """Sort-based dispatch: ``(order, starts, kept)``, the stable sort of
+    the assignments by expert (sorted rank -> token·k + choice), and each
+    expert's first entry in it and the number of its entries it keeps
+    (module docstring)."""
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=e + 1)[:e]
+    first = torch.cumsum(counts, 0) - counts
+    kept = (counts.clamp(max=cap) if mesh is None
+            else torch.minimum(counts, (cap - _lower_counts(mesh, counts)).clamp(min=0)))
+    starts, kept = torch.stack([first, kept]).tolist()
+    HOST_READS["count"] += 1
+    return order, starts, kept
+
+
 def _expert(params: Params, i: int, rows: torch.Tensor,
             spec: LinearSpec) -> torch.Tensor:
     """Expert ``i``'s SwiGLU on its rows, in the compute dtype."""
@@ -85,7 +144,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.experts_per_token
-    cap = t * k if valid is not None else int(max(1, (t * k / e) * cfg.capacity_factor))
+    mesh = data_shards() if valid is None else None
+    n_shards = 1 if mesh is None else math.prod(mesh.shape[a] for a in fsdp_axes(mesh))
+    cap = (t * k if valid is not None
+           else int(max(1, (t * n_shards * k / e) * cfg.capacity_factor)))
     xt = x.reshape(t, d)
 
     logits = xt.to(torch.float32) @ params["router"]["w"].to(torch.float32)
@@ -96,14 +158,7 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         # the virtual expert e: sorted after every real assignment, never run
         expert_idx = torch.where(valid.reshape(t)[:, None], expert_idx, e)
 
-    # ---- sort-based dispatch: an expert's group in the stable sort, its
-    # first ``cap`` entries kept
-    flat_e = expert_idx.reshape(t * k)
-    order = torch.argsort(flat_e, stable=True)  # sorted rank -> (token, choice)
-    counts = torch.bincount(flat_e, minlength=e + 1)[:e]
-    first = torch.cumsum(counts, 0) - counts
-    starts, kept = torch.stack([first, counts.clamp(max=cap)]).tolist()
-    HOST_READS["count"] += 1
+    order, starts, kept = _dispatch(expert_idx.reshape(t * k), e, cap, mesh)
 
     # ---- expert compute: each expert on the rows routed to it
     per_choice = x.new_zeros((t * k, d))
@@ -122,5 +177,8 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     onehot = F.one_hot(expert_idx, e + 1)[..., :e].to(torch.float32)
     density = onehot.sum(dim=1).mean(dim=0)  # (E,)
     router_prob = probs.mean(dim=0)
+    if mesh is not None:  # the global batch's means
+        density = _MeanOverShards.apply(density, mesh)
+        router_prob = _MeanOverShards.apply(router_prob, mesh)
     aux = e * torch.sum(density * router_prob) / k
     return out, aux

@@ -231,6 +231,18 @@ def _mlstm_chunk(carry, q_c, k_c, v_c, i_c, lf_c):
     return (c_new, n_new, g_last + total), y
 
 
+def _mlstm_scan(carry, q, k, v, ig, lf):
+    """The chunkwise scan over the whole sequence from ``carry``: the carry
+    after it and y (B, H, L, hd)."""
+    n_chunks, cl = _chunks(q.shape[2])
+    ys = []
+    for ci in range(n_chunks):
+        c = slice(ci * cl, (ci + 1) * cl)
+        carry, y = _mlstm_chunk(carry, q[:, :, c], k[:, :, c], v[:, :, c], ig[..., c], lf[..., c])
+        ys.append(y)
+    return carry, torch.cat(ys, dim=2)
+
+
 def mlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
           cache: Params | None = None,
           valid: torch.Tensor | None = None) -> tuple[torch.Tensor, Params | None]:
@@ -256,22 +268,18 @@ def mlstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
                  torch.zeros((b, h, hd), dtype=_F32, device=x.device),
                  torch.full((b, h), -30.0, dtype=_F32, device=x.device))
 
-    ys = []
     if valid is not None:
+        ys = []
         for t in range(l):
             tok = slice(t, t + 1)
             new, y = _mlstm_chunk(carry, q[:, :, tok], k[:, :, tok], v[:, :, tok],
                                   ig[..., tok], logf[..., tok])
             carry = tuple(_gate(valid[:, t], nw, old) for nw, old in zip(new, carry))
             ys.append(y)
+        y = torch.cat(ys, dim=2)
     else:
-        n_chunks, cl = _chunks(l)
-        for ci in range(n_chunks):
-            c = slice(ci * cl, (ci + 1) * cl)
-            carry, y = _mlstm_chunk(carry, q[:, :, c], k[:, :, c], v[:, :, c],
-                                    ig[..., c], logf[..., c])
-            ys.append(y)
-    y = torch.cat(ys, dim=2).transpose(1, 2).reshape(b, l, d).to(x.dtype)
+        carry, y = _mlstm_scan(carry, q, k, v, ig, logf)
+    y = y.transpose(1, 2).reshape(b, l, d).to(x.dtype)
     out = apply_linear(params["wo"], rmsnorm(params["norm"], y), spec)
     new_cache = None
     if cache is not None:
@@ -305,6 +313,28 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     }
 
 
+def _slstm_scan(z, ig, fg, og, carry, valid):
+    """The per-token recurrence over (B, L, d) gates from ``carry`` ``(c, n,
+    m)``: h (B, L, d) and the carry after it (gated per row by ``valid``
+    where given)."""
+    c, n, m = carry
+    hs = []
+    for t in range(z.shape[1]):
+        logf = -_softplus(-fg[:, t])  # the exponential gate through log sigmoid
+        m_new = torch.maximum(logf + m, ig[:, t])
+        i_s = torch.exp(ig[:, t] - m_new)
+        f_s = torch.exp(logf + m - m_new)
+        c_new = f_s * c + i_s * z[:, t]
+        n_new = f_s * n + i_s
+        hs.append(og[:, t] * c_new / torch.clamp_min(n_new, 1.0))
+        if valid is not None:
+            ok = valid[:, t]
+            c_new, n_new, m_new = (_gate(ok, nw, old) for nw, old in
+                                   ((c_new, c), (n_new, n), (m_new, m)))
+        c, n, m = c_new, n_new, m_new
+    return torch.stack(hs, dim=1), (c, n, m)
+
+
 def slstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
           cache: Params | None = None,
           valid: torch.Tensor | None = None) -> tuple[torch.Tensor, Params | None]:
@@ -321,21 +351,8 @@ def slstm(params: Params, x: torch.Tensor, cfg: ModelConfig,
         n = torch.zeros((b, d), dtype=_F32, device=x.device)
         m = torch.full((b, d), -30.0, dtype=_F32, device=x.device)
 
-    hs = []
-    for t in range(l):
-        logf = -_softplus(-fg[:, t])  # the exponential gate through log sigmoid
-        m_new = torch.maximum(logf + m, ig[:, t])
-        i_s = torch.exp(ig[:, t] - m_new)
-        f_s = torch.exp(logf + m - m_new)
-        c_new = f_s * c + i_s * z[:, t]
-        n_new = f_s * n + i_s
-        hs.append(og[:, t] * c_new / torch.clamp_min(n_new, 1.0))
-        if valid is not None:
-            ok = valid[:, t]
-            c_new, n_new, m_new = (_gate(ok, nw, old) for nw, old in
-                                   ((c_new, c), (n_new, n), (m_new, m)))
-        c, n, m = c_new, n_new, m_new
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    h, (c, n, m) = _slstm_scan(z, ig, fg, og, (c, n, m), valid)
+    y = h.to(x.dtype)
     out = apply_linear(params["wo"], rmsnorm(params["norm"], y), spec)
     new_cache = None
     if cache is not None:

@@ -35,7 +35,9 @@ carry the same specs.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
+from typing import Callable
 
 import torch
 
@@ -43,9 +45,20 @@ from ..tree import tree_map
 from .sharding import fsdp_axes, gather_for_compute
 
 __all__ = ["activation_sharding", "checkpoint_contexts", "constrain",
-           "constrain_group_params"]
+           "constrain_group_params", "data_shards"]
 
 _STATE = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Policy:
+    """What :func:`activation_sharding` installs (its docstring)."""
+
+    mesh: object
+    spec_for: Callable
+    group_shardings: object
+    compute_dtype: torch.dtype | None
+    batch_split: bool
 
 
 def _policy():
@@ -54,11 +67,14 @@ def _policy():
 
 @contextlib.contextmanager
 def activation_sharding(mesh, group_shardings=None,
-                        compute_dtype: torch.dtype | None = None):
+                        compute_dtype: torch.dtype | None = None,
+                        batch_split: bool = False):
     """Install the policy of ``mesh`` for the block.  ``group_shardings``:
     the ``NamedSharding`` tree of ONE group of ``params["groups"]``; when
     set, :func:`constrain_group_params` gathers each group's weights by it
-    (cast to ``compute_dtype``, where given, as ``launch.steps`` casts)."""
+    (cast to ``compute_dtype``, where given, as ``launch.steps`` casts).
+    ``batch_split``: each fsdp rank runs its shard of the batch
+    (``batch_pspec``), so :func:`data_shards` names the mesh."""
     fsdp = fsdp_axes(mesh)
     fs = fsdp if len(fsdp) > 1 else fsdp[0]
     n_fsdp = 1
@@ -83,7 +99,7 @@ def activation_sharding(mesh, group_shardings=None,
             return (batch, None, None, "model" if shape[-1] % n_model == 0 else None)
         return None
 
-    with _installed((mesh, spec_for, group_shardings, compute_dtype)):
+    with _installed(_Policy(mesh, spec_for, group_shardings, compute_dtype, batch_split)):
         yield
 
 
@@ -114,7 +130,17 @@ def constrain_group_params(gp):
     """A group's weights whole, gathered from the ranks' shards by the
     policy's ``group_shardings`` (``gp`` itself without them)."""
     pol = _policy()
-    if pol is None or pol[2] is None:
+    if pol is None or pol.group_shardings is None:
         return gp
-    _, _, shardings, dtype = pol
-    return tree_map(lambda t, s: gather_for_compute(t, s, dtype), gp, shardings)
+    return tree_map(lambda t, s: gather_for_compute(t, s, pol.compute_dtype), gp,
+                    pol.group_shardings)
+
+
+def data_shards():
+    """The mesh whose fsdp ranks each run a shard of the batch under the
+    installed policy, or None (no policy, or every rank runs the whole
+    batch).  What the reference computes over the global batch, a MoE
+    layer's capacity and load-balance statistics (``models.moe``), reduces
+    over those ranks."""
+    pol = _policy()
+    return pol.mesh if pol is not None and pol.batch_split else None

@@ -25,7 +25,6 @@ from __future__ import annotations
 import itertools
 
 import torch
-import torch.distributed as dist
 
 from ..models import transformer as T
 from ..models.config import ModelConfig
@@ -98,13 +97,13 @@ def pipeline_forward(params, cfg: ModelConfig, tokens: torch.Tensor, mesh,
             if not 0 <= t - b < n_micro or sid not in (b, b + 1):
                 continue
             if sid == b:
-                dist.broadcast(y, src=src(b), group=groups[mine[b]])
+                mesh.broadcast(y, src(b), groups[mine[b]])
             else:
                 buf = torch.empty((mb, s, cfg.d_model), dtype=dtype, device=embed.device)
-                dist.broadcast(buf, src=src(b), group=groups[mine[b]])
+                mesh.broadcast(buf, src(b), groups[mine[b]])
     pod = mesh.group((axis,))
     if pod is not None:
-        dist.broadcast(outputs, src=src(n_stages - 1), group=pod[0])
+        mesh.broadcast(outputs, src(n_stages - 1), pod[0])
 
     # the replicated epilogue, a microbatch at a time (the sequential
     # forward's shapes): final norm, logits in f32

@@ -32,6 +32,19 @@ inputs, so every comparison below is one process's.
   gathered and written by rank 0): its step-5 parameters within atol 1e-5 of
   the mesh-free CLI's at lr 1e-6, its moments within 2% of each leaf's
   absmax (the CLI's smoke config computes in bf16).
+* MoE under the (2, 2) mesh: moonshot-v1-16b-a3b's smoke config in f32 (the
+  reference's seeded weights), its capacity factor cut to 0.5 so that the
+  mesh-free step drops assignments: one train step's loss and ``aux``
+  within rtol 1e-5 of the mesh-free step's, its grad norm within rtol
+  1e-4, the router's gathered gradient within atol 1e-6, and every MoE
+  layer keeps the same set of (token, choice) assignments of the global
+  batch (capacity and load-balance statistics are the global batch's, as
+  the reference's ``jit`` computes them).
+* The dry run's accounting: rank 0 counts the result bytes of its mesh's
+  collectives over one dense (2, 2) train step, and those equal
+  ``launch.dryrun.DryRunMesh((2, 2))``'s for the same step on meta tensors,
+  key for key; the rank's state shards and batch equal the dry run's
+  ``argument_size_in_bytes``.
 """
 
 from __future__ import annotations
@@ -60,7 +73,10 @@ from repro_torch.launch.steps import (
     make_serve_step,
     make_train_step,
 )
+from repro_torch.launch.dryrun import COLLECTIVES, DryRunMesh, lower_cell, measure
+from repro_torch.launch.shapes import ShapeSpec
 from repro_torch.launch.train import state_shardings
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_config as t_get_config
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -80,16 +96,25 @@ def _tcfg():
     return dataclasses.replace(t_get_config("qwen1.5-110b", smoke=True), dtype="float32")
 
 
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_CAPACITY = 0.5  # low enough that the mesh-free step drops assignments
+
+
+def _moe_cfg():
+    return dataclasses.replace(t_get_config(MOE_ARCH, smoke=True), dtype="float32",
+                               capacity_factor=MOE_CAPACITY)
+
+
 @functools.lru_cache(maxsize=None)
-def weights():
-    """The reference's seeded smoke weights: (its config, its params, the
-    numpy tree)."""
+def weights(arch: str = "qwen1.5-110b"):
+    """The reference's seeded smoke weights of ``arch``: (its config, its
+    params, the numpy tree)."""
     import jax
 
     from repro.models import transformer as JT
     from repro.models.registry import get_config as j_get_config
 
-    jcfg = dataclasses.replace(j_get_config("qwen1.5-110b", smoke=True), dtype="float32")
+    jcfg = dataclasses.replace(j_get_config(arch, smoke=True), dtype="float32")
     jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
     return jcfg, jparams, jax.tree.map(np.array, jparams)
 
@@ -142,6 +167,63 @@ def _train(cfg, fresh, mesh, p_shard, compress: bool, batches) -> dict:
     return out, state
 
 
+def _moe_step(cfg, fresh, mesh, p_shard, batch) -> dict:
+    """One MoE train step (mesh-free where ``mesh`` is None): its loss,
+    aux and grad norm, the router's gradient whole, and each MoE layer's
+    kept assignments as global (token·k + choice) indices."""
+    kept, real = [], M._dispatch
+
+    def spy(flat_e, e, cap, m):
+        order, starts, n_kept = real(flat_e, e, cap, m)
+        off = 0 if m is None else m.coord["data"] * flat_e.numel()
+        kept.append(sorted(off + int(j) for i in range(e)
+                           for j in order[starts[i]:starts[i] + n_kept[i]]))
+        return order, starts, n_kept
+
+    params = fresh() if mesh is None else tree_map(lambda t, sh: sh.place(t), fresh(), p_shard)
+    _, _, grads = loss_and_grads(params, cfg, batch, mesh, p_shard)
+    router = grads["groups"][0]["moe"]["router"]["w"]
+    if mesh is not None:
+        router = p_shard["groups"][0]["moe"]["router"]["w"].gather(router)
+    M._dispatch = spy
+    try:
+        state = {"params": params, "opt": adamw_init(params)}
+        step = make_train_step(cfg, AdamWConfig(lr=LR), mesh, grad_shardings=p_shard)
+        _, m = step(state, batch)
+    finally:
+        M._dispatch = real
+    return {"loss": float(m["loss"]), "aux": float(m["aux"]),
+            "grad_norm": float(m["grad_norm"]), "router_grad": router.detach().numpy(),
+            "kept": kept[:cfg.n_groups], "assignments": batch["tokens"].numel()
+            * cfg.experts_per_token}
+
+
+def _count_collectives(mesh, fn) -> dict:
+    """``fn()`` with the result bytes of ``mesh``'s collectives counted
+    under the reference's keys (only calls over more than one rank)."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+
+    def counted(name, kind_of):
+        orig = getattr(mesh, name)
+
+        def call(t, *args, **kw):
+            out = orig(t, *args, **kw)
+            axes = args[0] if args else kw.get("axes")
+            if mesh.group(axes) is not None:
+                counts[kind_of] += out.numel() * out.element_size()
+            return out
+        return call
+
+    mesh.all_gather = counted("all_gather", "all-gather")
+    mesh.all_reduce = counted("all_reduce", "all-reduce")
+    try:
+        fn()
+    finally:
+        del mesh.all_gather, mesh.all_reduce
+    counts["total"] = sum(counts.values())
+    return counts
+
+
 def _rank_world(rank: int, world: int, init_method: str, outdir: str) -> None:
     torch.set_num_threads(1)
     init_serving_world(rank, world, init_method, device="cpu", timeout_s=120)
@@ -157,6 +239,32 @@ def _rank_world(rank: int, world: int, init_method: str, outdir: str) -> None:
         mesh = make_local_mesh(data=2, model=2)
         p_shard = param_shardings(fresh(), mesh)
         batches = _batches(cfg, STEPS)
+
+        # one dense (2, 2) step with rank 0's collectives counted, and the
+        # bytes of the rank's state shards and batch
+        params = tree_map(lambda t, sh: sh.place(t), fresh(), p_shard)
+        state = {"params": params, "opt": adamw_init(params)}
+        step = make_train_step(cfg, AdamWConfig(lr=LR), mesh, grad_shardings=p_shard)
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state) + list(batches[0].values()))
+        if rank == 0:
+            out["dryrun"] = {"collectives": _count_collectives(
+                mesh, lambda: step(state, batches[0])), "argument_bytes": held}
+        else:
+            step(state, batches[0])
+
+        # MoE at (2, 2) against the mesh-free step
+        mcfg = _moe_cfg()
+        with open(os.path.join(outdir, "moe_weights.pkl"), "rb") as f:
+            mtree = pickle.load(f)
+
+        def mfresh():
+            return params_from_numpy(mtree, mcfg)
+
+        mbatch = _batches(mcfg, 1)[0]
+        out["moe"] = {"free": _moe_step(mcfg, mfresh, None, None, mbatch),
+                      "mesh": _moe_step(mcfg, mfresh, mesh, param_shardings(mfresh(), mesh),
+                                        mbatch)}
         free_state = None
         for compress in (False, True):
             free, state = _train(cfg, fresh, None, None, compress, batches)
@@ -242,6 +350,8 @@ def world4(tmp_path_factory):
             outdir.mkdir(exist_ok=True)
             with open(outdir / "weights.pkl", "wb") as f:
                 pickle.dump(weights()[2], f)
+            with open(outdir / "moe_weights.pkl", "wb") as f:
+                pickle.dump(weights(MOE_ARCH)[2], f)
             torch.multiprocessing.start_processes(
                 _rank_world, args=(WORLD, f"file://{outdir / 'store'}", str(outdir)),
                 nprocs=WORLD, start_method="spawn")
@@ -337,3 +447,34 @@ def test_train_cli_mesh_local_resumes_and_matches_mesh_free(world4, tmp_path):
             # parameters move by about lr a step either way
             atol = 2e-2 * float(np.abs(want[k]).max()) if k.startswith("opt/") else 1e-5
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol, err_msg=k)
+
+
+def test_moe_under_the_mesh_equals_mesh_free(world4):
+    ranks = world4[0]
+    free = ranks[0]["moe"]["free"]
+    # the mesh-free step drops assignments at this capacity factor
+    assert any(len(layer) < free["assignments"] for layer in free["kept"])
+    for rank in ranks:
+        got = rank["moe"]["mesh"]
+        np.testing.assert_allclose(got["loss"], free["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["aux"], free["aux"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], free["grad_norm"], rtol=1e-4)
+        np.testing.assert_allclose(got["router_grad"], free["router_grad"], rtol=0, atol=1e-6)
+    # the kept assignments of the global batch: the union of the data ranks'
+    # (ranks 0 and 2 are model coordinate 0 of data 0 and 1)
+    for layer, want in enumerate(free["kept"]):
+        union = sorted(ranks[0]["moe"]["mesh"]["kept"][layer]
+                       + ranks[2]["moe"]["mesh"]["kept"][layer])
+        assert union == want, layer
+
+
+def test_dryrun_mesh_counts_what_rank_0_moved_and_held(world4):
+    got = world4[0][0]["dryrun"]
+    mesh = DryRunMesh((2, 2), ("data", "model"))
+    lowered, _, _ = lower_cell("qwen1.5-110b", "train_4k", False, smoke=True,
+                               shape=ShapeSpec("train_16", 16, 4, "train"), mesh=mesh,
+                               cfg=_tcfg())
+    want = measure(lowered, mesh)
+    assert want["collectives"] == got["collectives"]
+    assert got["collectives"]["all-gather"] > 0 and got["collectives"]["all-reduce"] > 0
+    assert want["memory"]["argument_size_in_bytes"] == got["argument_bytes"]

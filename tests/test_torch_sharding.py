@@ -120,8 +120,7 @@ def test_reference_test_cases_hold():
 
 def _port_spec_for(mesh, kind, shape):
     with TA.activation_sharding(mesh):
-        _, spec_for, _, _ = TA._policy()
-        return spec_for(kind, shape)
+        return TA._policy().spec_for(kind, shape)
 
 
 def _ref_spec_for(mesh, kind, shape):
